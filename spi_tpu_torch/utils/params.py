@@ -1,0 +1,47 @@
+"""Noise-map utilities (counterpart of spi_tpu/utils/params.py).
+
+The noise maps are the generator's `noise_const` buffers, keyed by
+their dotted names, which equal the JAX package's pytree paths
+(`backbone.synthesis.b8.conv0.noise_const`, ...).
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+from torch import nn
+
+
+def extract_noise(module: nn.Module) -> dict[str, torch.Tensor]:
+    """The `noise_const` buffers of `module`, by dotted name."""
+    return {k: v for k, v in module.named_buffers() if k.endswith("noise_const")}
+
+
+@contextlib.contextmanager
+def replace_noise(module: nn.Module, noise: dict[str, torch.Tensor]):
+    """Within the block, `module` reads `noise[name]` in place of each
+    named buffer (the tensors may require grad); restored on exit."""
+    saved = []
+    try:
+        for name, value in noise.items():
+            owner_name, _, attr = name.rpartition(".")
+            owner = module.get_submodule(owner_name)
+            if attr not in owner._buffers:
+                raise KeyError(f"{name} is not a buffer of the module")
+            saved.append((owner, attr, owner._buffers[attr]))
+            owner._buffers[attr] = value
+        yield module
+    finally:
+        for owner, attr, value in reversed(saved):
+            owner._buffers[attr] = value
+
+
+def init_noise_like(module: nn.Module, generator=None) -> dict[str, torch.Tensor]:
+    """Fresh standard-normal noise maps, one per buffer, drawn in sorted
+    name order (w_projector.py:58-60)."""
+    noise = extract_noise(module)
+    return {
+        k: torch.randn(v.shape, generator=generator, device=v.device, dtype=v.dtype)
+        for k, v in sorted(noise.items())
+    }

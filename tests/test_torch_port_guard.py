@@ -1,0 +1,90 @@
+"""Guards of the PyTorch/CUDA port's boundaries.
+
+- spi_tpu_torch and chip_smoke.py import neither JAX nor the JAX
+  package: the port stands alone on a machine without JAX.
+- Entry points default to CUDA and raise when no GPU is present, rather
+  than running on the CPU unasked.
+- chip_smoke.py fails, and prints no result, without a GPU.
+"""
+
+import ast
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "spi_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: pathlib.Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+    return names
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "spi_tpu", "optax", "flax")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    bad = [n for n in _imported_modules(path) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_guard_sees_forbidden_imports(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("def f():\n    import jax.numpy as jnp\n"
+                   "from spi_tpu.ops import bias_act\nfrom spi_tpu_torch import ops\n")
+    assert [n for n in _imported_modules(src) if _forbidden(n)] == ["spi_tpu.ops", "jax.numpy"]
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_gpu(no_cuda):
+    from spi_tpu_torch.criteria.lpips import LPIPS
+    from spi_tpu_torch.models import TriPlaneGenerator, tiny_test_config
+    from spi_tpu_torch.training.projectors import ProjectorSettings, project
+    from spi_tpu_torch.utils import camera
+
+    with pytest.raises(RuntimeError, match="no GPU"):
+        TriPlaneGenerator(tiny_test_config())
+    with pytest.raises(RuntimeError, match="no GPU"):
+        LPIPS(cfg=(8,), target_layers=(1,))
+    g = TriPlaneGenerator(tiny_test_config(), device="cpu")
+    lp = LPIPS(cfg=(8,), target_layers=(1,), device="cpu")
+    with pytest.raises(RuntimeError, match="no GPU"):
+        project(g, lp, torch.zeros(1, 3, 128, 128), camera.canonical_camera(),
+                ProjectorSettings(num_steps=1, w_avg_samples=2))
+
+
+def test_chip_smoke_fails_without_gpu(no_cuda, capsys):
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    assert chip_smoke.main() != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """Copied into a directory without the package, it exits non-zero and
+    prints no result."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
