@@ -6,63 +6,52 @@
 Phases (any failure exits non-zero):
   1. build the CUDA kernel library from spi_tpu_torch/csrc;
   2. hold each kernel against its plain PyTorch version on the card at
-     the inversion path's shapes, and time kernel, plain version,
+     the shapes its path gives it, and time kernel, plain version,
      PyTorch library yardstick and the roofline bound;
-  3. tiny_test_config synthesis forward and w/noise gradients: on the
-     card with the kernels versus on the CPU with the plain versions,
-     same weights, same injected random draws;
+  3. tiny_test_config synthesis forward and w / noise / weight gradients:
+     on the card with the kernels versus on the CPU with the plain
+     versions, same weights, same injected random draws;
   4. stage-1 'sg' projection at full ffhq512_128_config width (random
      seeded weights), a few steps, with every kernel's launch count;
   5. one more 'sg' step under torch.profiler: the card's time by kernel
-     and by kind of kernel, and its busy share of a step.
+     and by kind of kernel, and its busy share of a step;
+  6. stage-1 'mir' projection at full width from a yawed camera (two
+     cameras rendered from one set of planes);
+  7. stage-2 recon-only tuning at full width from phase 4's w and noise;
+  8. the probe tools (spi_tpu_torch/tools), each run once.
 
-Prints the card's name and power limit, one `{"kernels": [...]}` line,
-and last `{"ok": true, "device": {...}}`. TF32 is off throughout: the
-port computes in float32, as the JAX reference does.
+Each path (phases 3, 4, 6, 7 and each tool) runs with the launch counts
+set to 0 just before it and fails unless each kernel it is meant to
+launch was launched. Prints the card's name and power limit, one
+`{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`. TF32
+is off throughout: the port computes in float32, as the JAX reference
+does.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM rate and
-# float32 rate outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
+from spi_tpu_torch.tools.timing import bound_ms, time_ms  # fails outside a checkout
 
 TOL_SPLAT = 1e-4     # relative to max |ref|: f32 atomics add in run-dependent order
+TOL_SCATTER = 1e-5   # relative to max |ref|: the probes' f32 atomics add in any order
 TOL_ELEMWISE = 1e-5  # absolute + relative: same f32 formulas, other libm approximations
 TOL_SYNTH = 1e-3     # relative to max |ref|: card vs CPU, other summation orders end to end
+
+# The kernels each path is meant to launch.
+INVERSION_KERNELS = ("plane_splat", "bias_act_fwd", "bias_act_bwd")
+TOOL_KERNELS = {"profile_gather": ("row_gather",), "probe_scatter": ("row_scatter_add",),
+                "probe_winscatter": ("win_scatter",)}
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def time_ms(fn, iters=20, warmup=3):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound_ms(nbytes, flops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def rel_err(a, b):
@@ -163,11 +152,15 @@ def phase_bias_act(dev):
             # clamp, the two versions may round to opposite sides of it
             # and so keep or zero that element's gradient: such elements
             # are left out of the backward's comparison and counted.
-            # Likewise where x + b is exactly 0: at that kink the kernel
-            # takes act'(0) by the TPU kernel's rule (the x >= 0 branch),
-            # PyTorch's relu, lrelu and selu the other branch.
+            # Likewise, for relu and selu only, where x + b is exactly 0:
+            # at that kink the kernel takes act'(0) by the TPU kernel's
+            # rule (the x >= 0 branch), the plain version spi_tpu's
+            # impl='xla' rule (the other branch). lrelu takes the x >= 0
+            # branch in both.
             pre = bias_act_plain(x, b, dim=dim, act=act, gain=1.7)  # before the clamp
-            near = ((pre.abs() - 2.5).abs() <= 1e-6) | (bias_act_plain(x, b, dim=dim) == 0)
+            near = (pre.abs() - 2.5).abs() <= 1e-6
+            if act in ("relu", "selu"):
+                near |= bias_act_plain(x, b, dim=dim) == 0
             del pre
             n_near = int(near.sum())
             check(n_near <= 1e-4 * x.numel(), f"{n_near} elements at the clamp or kink for {act}")
@@ -219,8 +212,118 @@ def phase_bias_act(dev):
     return out
 
 
+def phase_win_scatter(dev):
+    """Row 4: the windowed splat at the probe's shapes (384 tiles of 2048
+    points, C = 32, into 256 x 256 x 32), K1 64x64 and 64x32 windows and
+    K2 256x48 strips, in f32 and bf16."""
+    import torch
+
+    from spi_tpu_torch.ops.win_scatter import win_scatter_cuda, win_scatter_plain
+    from spi_tpu_torch.tools.probe_winscatter import C, H, N_TILES, TILE_P, W, WINDOWS, make_inputs
+
+    worst, row = 0.0, None
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, win_h, win_w, spread in WINDOWS:
+            args = make_inputs(N_TILES, win_h, win_w, spread if win_h != H else H - 2, spread,
+                               dtype, device=dev, seed=4)
+            geom = (win_h, win_w, H, W)
+            got = win_scatter_cuda(*args, *geom)
+            want = win_scatter_plain(*args, *geom)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            max_abs = float((got - want).abs().max())
+            worst = max(worst, max_abs)
+            ms = time_ms(lambda: win_scatter_cuda(*args, *geom))
+            plain = time_ms(lambda: win_scatter_plain(*args, *geom), iters=3)
+            # Bytes: the cotangents, the two coordinate rows of fyx that
+            # are read, the offsets and the table; 12 operations a corner
+            # and channel pair (hat weights and products) are far below.
+            nbytes = (args[2].numel() * args[2].element_size() + 2 * N_TILES * TILE_P * 4
+                      + args[0].numel() * 4 + H * W * C * 4)
+            b_ms, b_by = bound_ms(nbytes, 12 * N_TILES * TILE_P * C)
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            log(f"win_scatter {name} {dt}: max abs err {max_abs:.3e}, rel {err:.3e} "
+                f"(tol {TOL_SCATTER}); kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
+            check(err <= TOL_SCATTER, f"win_scatter {name} {dt} disagrees with its plain version")
+            if row is None:  # the table's row: K1 64x64 in f32
+                row = (ms, plain, b_ms, b_by)
+            del args, got, want
+    ms, plain, b_ms, b_by = row
+    return {"name": "win_scatter", "route": "cuda", "source": "spi_tpu_torch/csrc/win_scatter.cu",
+            "replaces": "tools/probe_winscatter_r5.py:50", "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def phase_row_gather(dev):
+    """Row 5: the row gather at the probe's shape (65,536 rows of 32 f32,
+    one row index broadcast over the columns) and at the render pass's
+    (786,432 rows gathered from 65,536). Bitwise equal to torch.gather."""
+    import torch
+
+    from spi_tpu_torch.ops.gather_scatter import row_gather_cuda, row_gather_plain
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    tab = torch.randn(65536, 32, device=dev, generator=gen)
+    rows = {}
+    for label, n in (("probe", 65536), ("render pass", 786432)):
+        idx = torch.randint(0, 65536, (n, 1), device=dev, generator=gen,
+                            dtype=torch.int32).expand(n, 32).contiguous()
+        idx64 = idx.long()
+        got = row_gather_cuda(tab, idx)
+        equal = torch.equal(got, row_gather_plain(tab, idx))
+        ms = time_ms(lambda: row_gather_cuda(tab, idx))
+        plain = time_ms(lambda: row_gather_plain(tab, idx))
+        lib_ms = time_ms(lambda: torch.gather(tab, 0, idx64))
+        nbytes = 2 * idx.numel() * 4 + tab.numel() * 4
+        b_ms, b_by = bound_ms(nbytes, 0)
+        log(f"row_gather {label} ({n}, 32) from (65536, 32): bitwise equal {equal}; kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms (int32 -> int64 + torch.gather), torch.gather "
+            f"int64 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
+        check(equal, f"row_gather {label} differs from torch.gather")
+        rows[label] = (ms, plain, lib_ms, b_ms, b_by)
+    ms, plain, lib_ms, b_ms, b_by = rows["probe"]
+    return {"name": "row_gather", "route": "cuda", "source": "spi_tpu_torch/csrc/row_gather.cu",
+            "replaces": "tools/profile_gather.py:111", "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def phase_row_scatter_add(dev):
+    """Row 6: 786,432 rows of 32 f32 added into (65,536, 32) f32."""
+    import torch
+
+    from spi_tpu_torch.ops.gather_scatter import row_scatter_add_cuda, row_scatter_add_plain
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n, c, n_out = 786432, 32, 65536
+    upd = torch.randn(n, c, device=dev, generator=gen)
+    rows = torch.randint(0, n_out, (n, 1), device=dev, generator=gen, dtype=torch.int32)
+    rows64 = rows.reshape(-1).long()
+    got = row_scatter_add_cuda(rows, upd, n_out)
+    want = row_scatter_add_plain(rows, upd, n_out)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    max_abs = float((got - want).abs().max())
+    ms = time_ms(lambda: row_scatter_add_cuda(rows, upd, n_out))
+    plain = time_ms(lambda: row_scatter_add_plain(rows, upd, n_out))
+    lib_ms = time_ms(lambda: torch.zeros(n_out, c, device=dev).index_add_(0, rows64, upd))
+    nbytes = upd.numel() * 4 + rows.numel() * 4 + n_out * c * 4
+    b_ms, b_by = bound_ms(nbytes, n * c)
+    log(f"row_scatter_add ({n}, {c}) -> ({n_out}, {c}): max abs err {max_abs:.3e}, rel "
+        f"{err:.3e} (tol {TOL_SCATTER}); kernel {ms:.4f} ms, plain {plain:.4f} ms, index_add_ "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
+    check(err <= TOL_SCATTER, "row_scatter_add disagrees with its plain version")
+    return {"name": "row_scatter_add", "route": "cuda",
+            "source": "spi_tpu_torch/csrc/row_scatter_add.cu",
+            "replaces": "tools/probe_scatter_r5.py:161", "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
 def phase_tiny_synthesis(dev):
-    """Card (kernels) vs CPU (plain versions) on tiny_test_config."""
+    """Card (kernels) vs CPU (plain versions) on tiny_test_config: the
+    outputs and the gradients of w, the noise maps and every weight (the
+    weight gradients cross each bias_act kernel's bias path and the splat
+    into the planes, as stage-2 tuning does)."""
     import torch
 
     from spi_tpu_torch.models import TriPlaneGenerator, tiny_test_config
@@ -257,71 +360,113 @@ def phase_tiny_synthesis(dev):
         loss.backward()
         launched = {k: _lib.launch_counts[k] - before[k] for k in before}
         results[device] = ({k: v.detach().cpu() for k, v in out.items()}, ws.grad.cpu(),
-                           {k: v.grad.cpu() for k, v in noise.items()}, launched)
-    (ref_out, ref_gw, ref_gn, cpu_launched), (out, gw, gn, launched) = results["cpu"], results[dev]
+                           {k: v.grad.cpu() for k, v in noise.items()},
+                           {k: p.grad.cpu() for k, p in g.named_parameters()
+                            if p.grad is not None}, launched)
+    (ref_out, ref_gw, ref_gn, ref_gp, cpu_launched) = results["cpu"]
+    out, gw, gn, gp, launched = results[dev]
     check(not any(cpu_launched.values()), f"CPU run launched kernels: {cpu_launched}")
-    check(all(launched.values()), f"card run skipped a kernel: {launched}")
+    check(all(launched[k] for k in INVERSION_KERNELS), f"card run skipped a kernel: {launched}")
+    check(set(gp) == set(ref_gp), "the card and the CPU give gradients to other weights")
     errs = {k: rel_err(out[k], ref_out[k]) for k in ref_out}
     errs["grad_ws"] = rel_err(gw, ref_gw)
     errs["grad_noise"] = max(rel_err(gn[k], ref_gn[k]) for k in ref_gn)
+    weight_errs = sorted(((rel_err(gp[k], ref_gp[k]), k) for k in ref_gp), reverse=True)
+    errs["grad_weights"] = weight_errs[0][0]
+    log(f"tiny synthesis: {len(weight_errs)} weight gradients, the worst "
+        + ", ".join(f"{k} {e:.2e}" for e, k in weight_errs[:4]))
     log("tiny synthesis card vs CPU, error relative to max |ref|: "
         + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {TOL_SYNTH})")
     for k, v in errs.items():
         check(math.isfinite(v) and v <= TOL_SYNTH, f"tiny synthesis {k} disagrees: {v:.3e}")
 
 
-def phase_project(dev, num_steps=8):
-    """Stage-1 'sg' projection at full FFHQ-512 width. Returns the launch
-    counts of the run, the model, and the median step time (s) of the
-    steps after the second."""
+def drive(label, kernels, fn):
+    """Run `fn(on_step)` with every launch count at 0 and the peak memory
+    reset just before it; `on_step(step, value)` stamps each step. Fails
+    unless each of `kernels` was launched. Returns (fn's result, launch
+    counts, launches in the last step, median s/step after the second)."""
+    import torch
+
+    from spi_tpu_torch.ops import _lib
+
+    stamps, counts = [], []
+
+    def on_step(step, value):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        counts.append(dict(_lib.launch_counts))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    t_start = time.perf_counter()
+    result = fn(on_step)
+    torch.cuda.synchronize()
+    launches = dict(_lib.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
+    steady = statistics.median_high(step_s[1:])
+    per_step = {k: counts[-1][k] - counts[-2][k] for k in launches}
+    log(f"{label}: {len(stamps)} steps, first step {stamps[0] - t_start:.4f} s, then "
+        f"{[round(t, 5) for t in step_s]} s; median after the second {steady:.5f} s/step")
+    log(f"{label}: peak device memory {peak / 2**30:.3f} GiB")
+    log(f"{label}: launches {launches}; per step {per_step}")
+    for k in kernels:
+        check(launches[k] > 0, f"kernel {k} was never launched on the {label} path")
+    return result, launches, per_step, steady
+
+
+def build_model(dev):
+    """ffhq512_128_config at its published widths, random seeded weights;
+    LPIPS-VGG16; a random 512^2 target; the canonical camera."""
     import torch
 
     from spi_tpu_torch.criteria.lpips import LPIPS
     from spi_tpu_torch.models import TriPlaneGenerator, ffhq512_128_config
-    from spi_tpu_torch.ops import _lib
-    from spi_tpu_torch.training.projectors import ProjectorSettings, project
     from spi_tpu_torch.utils import camera as cam
 
     t0 = time.perf_counter()
     g = TriPlaneGenerator(ffhq512_128_config(), device=dev, seed=0)
     lpips = LPIPS(device=dev)
-    target = torch.tanh(torch.randn(1, 3, 512, 512, device=dev,
+    res = g.cfg.img_resolution
+    target = torch.tanh(torch.randn(1, 3, res, res, device=dev,
                                     generator=torch.Generator(device=dev).manual_seed(7)))
     camera = cam.canonical_camera(device=dev)
     torch.cuda.synchronize()
     log(f"ffhq512_128: {sum(p.numel() for p in g.parameters())} generator parameters, "
         f"built in {time.perf_counter() - t0:.1f} s")
-    settings = ProjectorSettings(mode="sg", num_steps=num_steps, w_avg_samples=600)
-    stamps, counts = [], []
+    return g, lpips, target, camera
 
-    def on_step(step, dist):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        counts.append(dict(_lib.launch_counts))
 
-    torch.cuda.reset_peak_memory_stats()
-    _lib.reset_launch_counts()
-    t_start = time.perf_counter()
-    w, noise, dists = project(g, lpips, target, camera, settings,
-                              rng=torch.Generator(device=dev).manual_seed(8), device=dev,
-                              on_step=on_step)
-    torch.cuda.synchronize()
-    launches = dict(_lib.launch_counts)
-    peak = torch.cuda.max_memory_allocated()
-    step_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
-    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
-    per_step = {k: counts[-1][k] - counts[-2][k] for k in launches}
-    log(f"sg project: {num_steps} steps, first step {stamps[0] - t_start:.4f} s (with w stats), "
-        f"then {[round(t, 5) for t in step_s]} s; median after the second {steady:.5f} s/step")
-    log(f"sg project: peak device memory {peak / 2**30:.3f} GiB; dists {dists.tolist()}")
-    log(f"sg project: launches {launches}; per step {per_step}")
+def check_projection(g, label, w, noise, dists):
+    import torch
+
+    log(f"{label}: dists {dists.tolist()}")
     check(tuple(w.shape) == (1, g.num_ws, g.w_dim) and bool(torch.isfinite(w).all()),
-          "w is not finite or has the wrong shape")
-    check(bool(torch.isfinite(dists).all()), "a projection loss is not finite")
-    check(all(bool(torch.isfinite(v).all()) for v in noise.values()), "noise is not finite")
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was never launched on the main path")
-    return launches, (g, lpips, target, camera), steady
+          f"{label}: w is not finite or has the wrong shape")
+    check(bool(torch.isfinite(dists).all()), f"{label}: a projection loss is not finite")
+    check(all(bool(torch.isfinite(v).all()) for v in noise.values()),
+          f"{label}: noise is not finite")
+
+
+def phase_project(dev, model, num_steps=8):
+    """Stage-1 'sg' projection at full FFHQ-512 width. Returns (w, noise),
+    the launch counts of the run and the median step time (s) of the
+    steps after the second."""
+    import torch
+
+    from spi_tpu_torch.training.projectors import ProjectorSettings, project
+
+    g, lpips, target, camera = model
+    settings = ProjectorSettings(mode="sg", num_steps=num_steps, w_avg_samples=600)
+    (w, noise, dists), launches, _, steady = drive(
+        "sg project", INVERSION_KERNELS,
+        lambda on_step: project(g, lpips, target, camera, settings,
+                                rng=torch.Generator(device=dev).manual_seed(8), device=dev,
+                                on_step=on_step))
+    check_projection(g, "sg project", w, noise, dists)
+    return (w, noise), launches, steady
 
 
 # Kernel name fragments -> the kind of work, for phase 5's breakdown. cuDNN's
@@ -379,40 +524,119 @@ def phase_profile(dev, model, steady_s):
         f"(device time over phase 4's median step time {steady_s * 1e3:.3f} ms)")
 
 
+def phase_mir(dev, model, num_steps=4):
+    """Stage-1 'mir' projection at full width from a yawed camera, so that
+    the mirror term's weight is nonzero. Both cameras render from one set
+    of planes, so each render pass's splat serves both in one launch."""
+    import torch
+
+    from spi_tpu_torch.training.projectors import ProjectorSettings, project
+    from spi_tpu_torch.utils import camera as cam
+
+    g, lpips, target, _ = model
+    camera = cam.canonical_camera(yaw=0.4, device=dev)
+    weight = float(cam.cal_camera_weight(cam.mirror_camera(camera))[0])
+    log(f"mir project: yaw 0.4, mirror weight {weight:.5f}")
+    check(weight > 0, "the mirror term has no weight at this camera")
+    settings = ProjectorSettings(mode="mir", num_steps=num_steps, w_avg_samples=600)
+    (w, noise, dists), _, per_step, steady = drive(
+        "mir project", INVERSION_KERNELS,
+        lambda on_step: project(g, lpips, target, camera, settings,
+                                rng=torch.Generator(device=dev).manual_seed(12), device=dev,
+                                on_step=on_step))
+    check_projection(g, "mir project", w, noise, dists)
+    check(per_step["plane_splat"] == 2,
+          f"mir: {per_step['plane_splat']} splat launches a step, not one per render pass")
+    return steady
+
+
+def phase_tune(dev, model, pivot, num_steps=6):
+    """Stage-2 recon-only tuning at full width from phase 4's w and noise;
+    the threshold is below any LPIPS value, so random weights do not stop
+    it early."""
+    import dataclasses
+
+    import torch
+
+    from spi_tpu_torch.training.coaches import CoachInputs, pti_settings, tune_generator
+    from spi_tpu_torch.utils.params import trainable_parameters
+
+    g, lpips, target, camera = model
+    w, noise = pivot
+    before = {k: p.detach().clone() for k, p in trainable_parameters(g).items()}
+    settings = dataclasses.replace(pti_settings(num_steps), lpips_threshold=-1.0)
+    (_, (steps, last_lpips)), _, per_step, steady = drive(
+        "stage-2 tune", INVERSION_KERNELS,
+        lambda on_step: tune_generator(g, lpips, CoachInputs(target, camera, w), settings,
+                                       noise=noise, rng=torch.Generator(device=dev).manual_seed(13),
+                                       device=dev, on_step=on_step))
+    after = trainable_parameters(g)
+    finite = all(bool(torch.isfinite(p).all()) for p in after.values())
+    moved = sum(not torch.equal(before[k], p) for k, p in after.items())
+    log(f"stage-2 tune: {steps} steps, last LPIPS {last_lpips:.6f}; weights finite {finite}, "
+        f"{moved} of {len(after)} weight tensors moved")
+    check(steps == num_steps and math.isfinite(last_lpips), "stage 2 stopped early or diverged")
+    check(finite and moved > 0, "the tuned weights are not finite or did not move")
+    return steady, per_step
+
+
+def phase_tools(dev):
+    """Each probe tool's run, once, with the launch counts at 0 before it."""
+    import importlib
+
+    import torch
+
+    from spi_tpu_torch.ops import _lib
+
+    for tool, kernels in TOOL_KERNELS.items():
+        mod = importlib.import_module(f"spi_tpu_torch.tools.{tool}")
+        t0 = time.perf_counter()
+        _lib.reset_launch_counts()
+        log(f"== tool {tool}")
+        mod.main()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _lib.launch_counts.items() if v}
+        log(f"tool {tool}: {time.perf_counter() - t0:.1f} s, launches {launches}")
+        for k in kernels:
+            check(launches.get(k, 0) > 0, f"kernel {k} was never launched by the {tool} tool")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from spi_tpu_torch.ops import _lib  # fails outside a checkout of the repo
+    from spi_tpu_torch.ops import _lib
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
-    path = _lib.build(verbose=True)
-    _lib.lib()
-    log(f"phase 1: built {path.name} in {time.perf_counter() - t0:.1f} s")
+    def phase(n, what, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {n}: {what} done in {time.perf_counter() - t0:.1f} s")
+        return out
 
-    t0 = time.perf_counter()
-    kernels = [phase_splat(dev), *phase_bias_act(dev)]
-    log(f"phase 2: kernels vs plain done in {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    phase_tiny_synthesis(dev)
-    log(f"phase 3: tiny synthesis card vs CPU done in {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    launches, model, steady_s = phase_project(dev)
-    log(f"phase 4: sg projection done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_profile(dev, model, steady_s)
-    log(f"phase 5: profile done in {time.perf_counter() - t0:.1f} s")
-    for k in kernels:
+    path = phase(1, "build", lambda: (_lib.build(verbose=True), _lib.lib())[0])
+    log(f"phase 1: built {path.name}")
+    kernels = phase(2, "kernels vs plain", lambda: [
+        phase_splat(dev), *phase_bias_act(dev), phase_win_scatter(dev), phase_row_gather(dev),
+        phase_row_scatter_add(dev)])
+    phase(3, "tiny synthesis card vs CPU", phase_tiny_synthesis, dev)
+    model = build_model(dev)
+    pivot, launches, sg_s = phase(4, "sg projection", phase_project, dev, model)
+    phase(5, "profile", phase_profile, dev, model, sg_s)
+    mir_s = phase(6, "mir projection", phase_mir, dev, model)
+    tune_s, _ = phase(7, "stage-2 tuning", phase_tune, dev, model, pivot)
+    phase(8, "probe tools", phase_tools, dev)
+    log(f"median s/step after the second: sg {sg_s:.5f}, mir {mir_s:.5f}, "
+        f"stage-2 tune {tune_s:.5f}")
+    for k in kernels:  # launches on the inversion ('sg') path
         k["launches"] = launches[k["name"]]
+    check([k["name"] for k in kernels] == list(_lib.KERNELS), "a kernel is missing from phase 2")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)

@@ -1,7 +1,9 @@
 """Tensor ops of the port (counterpart of spi_tpu/ops).
 
-The two kernels of the inversion path are `bias_act` and the splat
-backward of `sample_planes`; everything else is plain PyTorch.
+The kernels of the inversion path are `bias_act` and the splat backward
+of `sample_planes`; everything else on it is plain PyTorch. The probe
+kernels `win_scatter` (ops/win_scatter.py) and `row_gather` /
+`row_scatter_add` (ops/gather_scatter.py) serve the probe tools.
 """
 
 from spi_tpu_torch.ops.bias_act import bias_act

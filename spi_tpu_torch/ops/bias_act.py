@@ -37,7 +37,9 @@ class _ActSpec:
 activation_funcs: dict[str, _ActSpec] = {
     "linear": _ActSpec(lambda x, alpha: x, 0.0, 1.0, 0),
     "relu": _ActSpec(lambda x, alpha: F.relu(x), 0.0, math.sqrt(2), 1),
-    "lrelu": _ActSpec(lambda x, alpha: F.leaky_relu(x, alpha), 0.2, math.sqrt(2), 2),
+    # As jax.nn.leaky_relu: the x >= 0 branch at 0, so lrelu'(0) = 1 like
+    # both spi_tpu impls and the kernel (F.leaky_relu's gradient there is alpha).
+    "lrelu": _ActSpec(lambda x, alpha: torch.where(x >= 0, x, x * alpha), 0.2, math.sqrt(2), 2),
     "tanh": _ActSpec(lambda x, alpha: torch.tanh(x), 0.0, 1.0, 3),
     "sigmoid": _ActSpec(lambda x, alpha: torch.sigmoid(x), 0.0, 1.0, 4),
     "elu": _ActSpec(lambda x, alpha: F.elu(x), 0.0, 1.0, 5),

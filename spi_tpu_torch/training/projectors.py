@@ -1,12 +1,20 @@
-"""Stage-1 latent projection, mode 'sg' (counterpart of
-spi_tpu/training/projectors.py; spec spi/training/projectors/w_projector.py).
+"""Stage-1 latent projection (counterpart of spi_tpu/training/projectors.py).
 
-Optimises one w (repeated to every layer) and the generator's noise
-maps so that the rendered image's VGG16 feature distance to the target
-is small: Adam over {w, noise}, a cosine-ramped learning rate, annealed
-Gaussian noise on w, the noise autocorrelation regularizer x1e5, and
-per-step noise renormalization. One plain Python loop over the steps;
-each step is one forward and backward of `TriPlaneGenerator.synthesis`.
+- 'sg'  : spi/training/projectors/w_projector.py: one w repeated to every
+          layer, VGG16 feature distance at 256^2.
+- 'sgw+': spi/training/projectors/w_plus_projector.py: the full
+          (num_ws, w_dim) w+, LPIPS loss.
+- 'mir' : spi/training/projectors/mirror_projector.py: one backbone pass
+          rendered at [c, mirror(c)], LPIPS + yaw-weighted mirror LPIPS
+          against the flipped target.
+
+Every mode runs Adam over {w, noise maps} with a cosine-ramped learning
+rate, annealed Gaussian noise on w, the noise autocorrelation
+regularizer x1e5, and per-step noise renormalization. One plain Python
+loop over the steps; each step is one forward and backward of the
+generator's synthesis ('mir': one `planes_nhwc` and one two-camera
+`synthesis_from_planes`, so each render pass's splat serves both
+cameras in one launch).
 
 Randomness (noise init, w noise, render jitter) comes from `rng`, a
 `torch.Generator` on the run's device, or from `draws`, so that a test
@@ -26,13 +34,14 @@ from spi_tpu_torch.criteria.lpips import LPIPS
 from spi_tpu_torch.criteria.noise_reg import noise_regularization, normalize_noise
 from spi_tpu_torch.models.triplane import TriPlaneGenerator
 from spi_tpu_torch.ops import resize_area
+from spi_tpu_torch.utils import camera as cam
 from spi_tpu_torch.utils.device import module_device, resolve_device
 from spi_tpu_torch.utils.params import extract_noise, init_noise_like, replace_noise
 
 
 @dataclasses.dataclass(frozen=True)
 class ProjectorSettings:
-    mode: str = "sg"  # only 'sg' is ported
+    mode: str = "sg"  # 'sg' | 'sgw+' | 'mir'
     num_steps: int = 500
     w_avg_samples: int = 600
     initial_lr: float = 5e-3
@@ -91,7 +100,7 @@ def project(generator: TriPlaneGenerator, lpips: LPIPS, target, camera,
 
     device: None means `cuda` (raises without a GPU); the generator and
     LPIPS must already be on it. draws: optional {'noise0': {name:
-    map}, 'w_noise': (num_steps, 1, 1, w_dim) N(0, 1), 'render': [per-step
+    map}, 'w_noise': (num_steps, *w.shape) N(0, 1), 'render': [per-step
     renderer draws]}; what is not given is drawn from `rng`. on_step(step,
     dist) is called after each step.
     """
@@ -99,8 +108,9 @@ def project(generator: TriPlaneGenerator, lpips: LPIPS, target, camera,
     for name, module in (("generator", generator), ("lpips", lpips)):
         if module_device(module) != dev:
             raise ValueError(f"{name} is on {module_device(module)}, not {dev}")
-    if settings.mode != "sg":
-        raise NotImplementedError(f"projector mode {settings.mode!r}: only 'sg' is ported")
+    mode = settings.mode
+    if mode not in ("sg", "sgw+", "mir"):
+        raise ValueError(f"unknown projector mode {mode!r}")
     draws = draws or {}
     target = target.to(dev)
     camera = camera.to(dev)
@@ -110,13 +120,22 @@ def project(generator: TriPlaneGenerator, lpips: LPIPS, target, camera,
     noise0 = draws.get("noise0") or init_noise_like(generator, rng)
     if set(noise0) != set(extract_noise(generator)):
         raise ValueError("noise maps do not match the generator's noise_const buffers")
-    w = (w_avg if initial_w is None else initial_w).detach().clone().requires_grad_(True)
+    if initial_w is None:
+        initial_w = w_avg if mode == "sg" else w_avg.repeat(1, num_ws, 1)
+    w = initial_w.detach().clone().requires_grad_(True)
     noise = {k: v.detach().to(dev).clone().requires_grad_(True) for k, v in sorted(noise0.items())}
 
     with torch.no_grad():
-        # The target is constant over the steps: its features once.
-        y = resize_area(target, (256, 256)) if target.shape[-1] > 256 else target
-        target_feats = lpips.features(y)
+        # The targets are constant over the steps: their features once.
+        if mode == "sg":
+            target_feats = lpips.features(
+                resize_area(target, (256, 256)) if target.shape[-1] > 256 else target)
+        else:
+            target_feats = lpips.features(target)
+        if mode == "mir":
+            cameras = torch.cat([camera, cam.mirror_camera(camera)], dim=0)
+            weight_m = cam.cal_camera_weight(cameras[1:])[0]
+            target_m_feats = lpips.features(target.flip(3))
 
     opt = torch.optim.Adam([w, *noise.values()], lr=0.0, betas=(0.9, 0.999), eps=1e-8)
     render_draws = draws.get("render")
@@ -126,19 +145,31 @@ def project(generator: TriPlaneGenerator, lpips: LPIPS, target, camera,
             w_noise = draws["w_noise"][step].to(dev)
         else:
             w_noise = torch.randn(w.shape, generator=rng, device=dev)
-        ws = (w + w_noise * _w_noise_scale(step, w_std, settings)).repeat(1, num_ws, 1)
+        ws = w + w_noise * _w_noise_scale(step, w_std, settings)
+        if mode == "sg":
+            ws = ws.repeat(1, num_ws, 1)
+        step_draws = render_draws[step] if render_draws is not None else None
         with replace_noise(generator, noise):
-            img = generator.synthesis(
-                ws, camera, noise_mode="const",
-                draws=render_draws[step] if render_draws is not None else None,
-                generator=rng,
-            )["image"]
-        x = resize_area(img, (256, 256)) if img.shape[-1] > 256 else img
-        dist = vgg_feature_distance(lpips, x, target_feats)
+            if mode == "mir":
+                planes = generator.planes_nhwc(ws)
+                img = generator.synthesis_from_planes(planes, ws, cameras, draws=step_draws,
+                                                      generator=rng)["image"]
+            else:
+                img = generator.synthesis(ws, camera, noise_mode="const", draws=step_draws,
+                                          generator=rng)["image"]
+        if mode == "sg":
+            x = resize_area(img, (256, 256)) if img.shape[-1] > 256 else img
+            dist = vgg_feature_distance(lpips, x, target_feats)
+        elif mode == "sgw+":
+            dist = lpips(img, y_feats=target_feats)
+        else:
+            dist = (lpips(img[:1], y_feats=target_feats)
+                    + weight_m * lpips(img[1:], y_feats=target_m_feats))
         loss = dist + noise_regularization(noise) * settings.regularize_noise_weight
 
         opt.zero_grad(set_to_none=True)
-        loss.backward()
+        # Gradients for w and the noise maps only: none for the weights.
+        loss.backward(inputs=[w, *noise.values()])
         for group in opt.param_groups:
             group["lr"] = _lr_schedule(step, settings)
         opt.step()
@@ -147,5 +178,7 @@ def project(generator: TriPlaneGenerator, lpips: LPIPS, target, camera,
         if on_step is not None:
             on_step(step, dist.detach())
 
-    w_out = w.detach().repeat(1, num_ws, 1)
+    w_out = w.detach()
+    if mode == "sg":  # w_projector.py:113 returns the single w repeated to all layers
+        w_out = w_out.repeat(1, num_ws, 1)
     return w_out, {k: v.detach() for k, v in noise.items()}, torch.stack(dists)

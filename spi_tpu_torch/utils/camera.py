@@ -1,4 +1,5 @@
-"""Camera construction (counterpart of spi_tpu/utils/camera.py).
+"""Camera construction, mirroring and yaw weights (counterpart of
+spi_tpu/utils/camera.py).
 
 Cameras are 25-vectors: flattened 4x4 cam2world + flattened 3x3
 normalized intrinsics (OpenCV convention).
@@ -69,9 +70,60 @@ def pack_camera(cam2world, intrinsics):
     return torch.cat([cam2world.reshape(n, 16), intrinsics.reshape(n, 9)], dim=1)
 
 
+def unpack_camera(camera):
+    """(N, 25) -> cam2world (N, 4, 4), intrinsics (N, 3, 3)."""
+    return camera[:, :16].reshape(-1, 4, 4), camera[:, 16:25].reshape(-1, 3, 3)
+
+
 def canonical_camera(yaw: float = 0.0, pitch: float = 0.0, batch_size: int = 1, device=None):
     """Frontal FFHQ camera (spi/utils/camera_utils.py:233-240)."""
     h = torch.full((batch_size, 1), math.pi / 2 + yaw, dtype=torch.float32, device=device)
     v = torch.full((batch_size, 1), math.pi / 2 + CANONICAL_PITCH + pitch,
                    dtype=torch.float32, device=device)
     return pack_camera(lookat_pose(h, v, CANONICAL_LOOKAT), default_intrinsics(device))
+
+
+def flip_yaw(pose):
+    """Mirror a cam2world about the x = 0 plane
+    (spi/utils/camera_utils.py:336-343)."""
+    signs = torch.tensor([[1, -1, -1, -1], [-1, 1, 1, 1], [-1, 1, 1, 1], [1, 1, 1, 1]],
+                         dtype=pose.dtype, device=pose.device)
+    return pose * signs
+
+
+def mirror_camera(camera):
+    """Camera of the horizontally flipped image
+    (spi/utils/camera_utils.py:346-350)."""
+    pose, intrinsics = unpack_camera(camera)
+    return pack_camera(flip_yaw(pose), intrinsics)
+
+
+def rotation_to_angle(matrix):
+    """(..., 3, 3) -> (yaw, pitch, roll) (spi/utils/camera_utils.py:353-364)."""
+    r11, r12, r13 = matrix[..., 0, 0], matrix[..., 0, 1], matrix[..., 0, 2]
+    r23, r33 = matrix[..., 1, 2], matrix[..., 2, 2]
+    pitch = torch.arctan(-r23 / r33)
+    yaw = torch.arctan(r13 * torch.cos(pitch) / r33)
+    roll = torch.arctan(-r12 / r11)
+    return yaw, pitch, roll
+
+
+_GAUSS_CONST = math.sqrt(2 * math.pi)
+
+
+def _gauss(x, mean=0.0, std=0.25):
+    return torch.exp(-0.5 * (x - mean).square() / (std * std)) / (std * _GAUSS_CONST)
+
+
+def camera_yaw(camera):
+    ext, _ = unpack_camera(camera)
+    yaw, _, _ = rotation_to_angle(ext[:, :3, :3])
+    return yaw
+
+
+def cal_camera_weight(camera):
+    """Yaw-dependent mirror-loss weight (spi/utils/camera_utils.py:387-401):
+    0 for near-frontal cameras (|yaw| < 0.2), rising toward profile views."""
+    yaw = camera_yaw(camera).abs()
+    w = (1.0 - _gauss(yaw, std=0.29) / 2.7) / 2.0
+    return torch.where(yaw < 0.2, torch.zeros_like(w), w)

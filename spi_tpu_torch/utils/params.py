@@ -1,4 +1,5 @@
-"""Noise-map utilities (counterpart of spi_tpu/utils/params.py).
+"""Noise-map and trainable-parameter utilities (counterpart of
+spi_tpu/utils/params.py).
 
 The noise maps are the generator's `noise_const` buffers, keyed by
 their dotted names, which equal the JAX package's pytree paths
@@ -45,3 +46,13 @@ def init_noise_like(module: nn.Module, generator=None) -> dict[str, torch.Tensor
         k: torch.randn(v.shape, generator=generator, device=v.device, dtype=v.dtype)
         for k, v in sorted(noise.items())
     }
+
+
+def trainable_parameters(module: nn.Module) -> dict[str, nn.Parameter]:
+    """The parameters the stage-2 optimizer updates, by dotted name: the
+    counterpart of `trainable_mask`, which is True for every leaf but the
+    `noise_const` and `w_avg` buffers (base_coach.py:132-135). In the port
+    those are buffers, not parameters, so this is every parameter; the
+    suffix rule is kept so that the two select the same names."""
+    return {k: p for k, p in module.named_parameters()
+            if not k.endswith(("noise_const", "w_avg"))}

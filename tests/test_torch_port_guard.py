@@ -56,6 +56,7 @@ def no_cuda(monkeypatch):
 def test_entry_points_raise_without_gpu(no_cuda):
     from spi_tpu_torch.criteria.lpips import LPIPS
     from spi_tpu_torch.models import TriPlaneGenerator, tiny_test_config
+    from spi_tpu_torch.training.coaches import CoachInputs, pti_settings, tune_generator
     from spi_tpu_torch.training.projectors import ProjectorSettings, project
     from spi_tpu_torch.utils import camera
 
@@ -65,9 +66,33 @@ def test_entry_points_raise_without_gpu(no_cuda):
         LPIPS(cfg=(8,), target_layers=(1,))
     g = TriPlaneGenerator(tiny_test_config(), device="cpu")
     lp = LPIPS(cfg=(8,), target_layers=(1,), device="cpu")
+    for mode in ("sg", "sgw+", "mir"):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            project(g, lp, torch.zeros(1, 3, 128, 128), camera.canonical_camera(),
+                    ProjectorSettings(mode=mode, num_steps=1, w_avg_samples=2))
     with pytest.raises(RuntimeError, match="no GPU"):
-        project(g, lp, torch.zeros(1, 3, 128, 128), camera.canonical_camera(),
-                ProjectorSettings(num_steps=1, w_avg_samples=2))
+        tune_generator(g, lp, CoachInputs(torch.zeros(1, 3, 128, 128), camera.canonical_camera(),
+                                          torch.zeros(1, g.num_ws, g.w_dim)),
+                       pti_settings(1))
+
+
+@pytest.mark.parametrize("tool", ["profile_gather", "probe_scatter", "probe_winscatter"])
+def test_tools_raise_without_gpu(no_cuda, tool):
+    import importlib
+
+    mod = importlib.import_module(f"spi_tpu_torch.tools.{tool}")
+    with pytest.raises(RuntimeError, match="no GPU"):
+        mod.run()
+    with pytest.raises(RuntimeError, match="no GPU"):
+        mod.main()
+
+
+@pytest.mark.parametrize("mode", ["sg", "tune"])
+def test_step_time_raises_without_gpu(no_cuda, mode):
+    from spi_tpu_torch.tools import step_time
+
+    with pytest.raises(RuntimeError, match="no GPU"):
+        step_time.main(["--mode", mode, "--steps", "1"])
 
 
 def test_chip_smoke_fails_without_gpu(no_cuda, capsys):

@@ -75,6 +75,28 @@ class TestBiasAct:
         np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(tb.grad.numpy(), np.asarray(jgb), rtol=1e-4, atol=1e-4)
 
+    @pytest.mark.parametrize("impl", ["xla", "pallas"])
+    def test_lrelu_grad_at_zero(self, impl):
+        """At x + b exactly 0, lrelu' is 1 (the x >= 0 branch), as in both
+        spi_tpu impls and the CUDA kernel: the gradient there is the gain."""
+        from spi_tpu.ops.bias_act import bias_act as jbias_act
+
+        x = np.array([[-1.5, 0.0, 2.0, -3.0, 0.0, 1.0, -1.0, 4.0],
+                      [1.0, -0.5, 0.25, 3.0, -2.0, 0.0, 1.0, -4.0]], np.float32)
+        b = np.array([1.5, 0.5, -0.25, 3.0, 2.0, -1.0, 1.0, 4.0], np.float32)
+        at_zero = (x + b) == 0
+        assert at_zero.sum() == 8
+
+        def jloss(x, b):
+            return jnp.sum(jbias_act(x, b, act="lrelu", impl=impl))
+
+        jgx, jgb = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(b))
+        tx, tb = _t(x, True), _t(b, True)
+        ops.bias_act(tx, tb, act="lrelu").sum().backward()
+        np.testing.assert_allclose(tx.grad.numpy()[at_zero], np.sqrt(2), rtol=1e-6)
+        np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), rtol=1e-6)
+        np.testing.assert_allclose(tb.grad.numpy(), np.asarray(jgb), rtol=1e-6)
+
     @pytest.mark.parametrize("act", ["linear", "lrelu"])
     def test_fc_layout_trail_one(self, act):
         # (rows, C) with the bias on the last axis: the FC / decoder call.
