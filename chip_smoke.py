@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
@@ -48,6 +47,10 @@ TOL_SYNTH = 1e-3     # relative to max |ref|: card vs CPU, other summation order
 INVERSION_KERNELS = ("plane_splat", "bias_act_fwd", "bias_act_bwd")
 TOOL_KERNELS = {"profile_gather": ("row_gather",), "probe_scatter": ("row_scatter_add",),
                 "probe_winscatter": ("win_scatter",)}
+# The tolerance of each tool's `check`: the gather is exact, the scatters
+# add f32 in any order (error relative to max |plain|).
+TOOL_TOLERANCES = {"profile_gather": 0.0, "probe_scatter": TOL_SCATTER,
+                   "probe_winscatter": TOL_SCATTER}
 
 
 def log(*a):
@@ -289,33 +292,48 @@ def phase_row_gather(dev):
 
 
 def phase_row_scatter_add(dev):
-    """Row 6: 786,432 rows of 32 f32 added into (65,536, 32) f32."""
+    """Row 6: 786,432 rows of 32 f32 added into (65,536, 32) f32, the
+    Pallas probe's shape; and the probe_scatter tool's 128 channels with
+    0%, 50% and 90% of the rows out of range (dropped by the kernel)."""
     import torch
 
     from spi_tpu_torch.ops.gather_scatter import row_scatter_add_cuda, row_scatter_add_plain
 
     gen = torch.Generator(device=dev).manual_seed(11)
-    n, c, n_out = 786432, 32, 65536
-    upd = torch.randn(n, c, device=dev, generator=gen)
-    rows = torch.randint(0, n_out, (n, 1), device=dev, generator=gen, dtype=torch.int32)
-    rows64 = rows.reshape(-1).long()
-    got = row_scatter_add_cuda(rows, upd, n_out)
-    want = row_scatter_add_plain(rows, upd, n_out)
-    torch.cuda.synchronize()
-    err = rel_err(got, want)
-    max_abs = float((got - want).abs().max())
-    ms = time_ms(lambda: row_scatter_add_cuda(rows, upd, n_out))
-    plain = time_ms(lambda: row_scatter_add_plain(rows, upd, n_out))
-    lib_ms = time_ms(lambda: torch.zeros(n_out, c, device=dev).index_add_(0, rows64, upd))
-    nbytes = upd.numel() * 4 + rows.numel() * 4 + n_out * c * 4
-    b_ms, b_by = bound_ms(nbytes, n * c)
-    log(f"row_scatter_add ({n}, {c}) -> ({n_out}, {c}): max abs err {max_abs:.3e}, rel "
-        f"{err:.3e} (tol {TOL_SCATTER}); kernel {ms:.4f} ms, plain {plain:.4f} ms, index_add_ "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
-    check(err <= TOL_SCATTER, "row_scatter_add disagrees with its plain version")
+    n, n_out = 786432, 65536
+    worst, row = 0.0, None
+    for c, dead in ((32, 0.0), (128, 0.0), (128, 0.5), (128, 0.9)):
+        upd = torch.randn(n, c, device=dev, generator=gen)
+        rows = torch.randint(0, n_out, (n, 1), device=dev, generator=gen, dtype=torch.int32)
+        n_dead = int(n * dead)
+        rows[torch.randperm(n, device=dev, generator=gen)[:n_dead]] = n_out  # interleaved
+        rows64 = rows.reshape(-1).long()
+        got = row_scatter_add_cuda(rows, upd, n_out)
+        want = row_scatter_add_plain(rows, upd, n_out)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        max_abs = float((got - want).abs().max())
+        worst = max(worst, max_abs)
+        ms = time_ms(lambda: row_scatter_add_cuda(rows, upd, n_out))
+        plain = time_ms(lambda: row_scatter_add_plain(rows, upd, n_out))
+        # index_add_ has no drop: the yardstick sends dead rows to a sink row.
+        lib_ms = time_ms(lambda: torch.zeros(n_out + 1, c, device=dev).index_add_(0, rows64, upd))
+        # Bytes: the row ids, the live rows' updates and the table.
+        nbytes = (n - n_dead) * c * 4 + rows.numel() * 4 + n_out * c * 4
+        b_ms, b_by = bound_ms(nbytes, (n - n_dead) * c)
+        log(f"row_scatter_add ({n}, {c}) -> ({n_out}, {c}), {int(dead * 100)}% of rows out of "
+            f"range: max abs err {max_abs:.3e}, rel {err:.3e} (tol {TOL_SCATTER}); kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}, {nbytes / 1e6:.1f} MB)")
+        check(err <= TOL_SCATTER, f"row_scatter_add at C = {c} with {int(dead * 100)}% of rows "
+              "out of range disagrees with its plain version")
+        if row is None:  # the table's row: the Pallas probe's shape
+            row = (ms, plain, lib_ms, b_ms, b_by)
+        del upd, rows, rows64, got, want
+    ms, plain, lib_ms, b_ms, b_by = row
     return {"name": "row_scatter_add", "route": "cuda",
             "source": "spi_tpu_torch/csrc/row_scatter_add.cu",
-            "replaces": "tools/probe_scatter_r5.py:161", "max_abs_err": max_abs, "ms": ms,
+            "replaces": "tools/probe_scatter_r5.py:161", "max_abs_err": worst, "ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
@@ -382,33 +400,22 @@ def phase_tiny_synthesis(dev):
 
 
 def drive(label, kernels, fn):
-    """Run `fn(on_step)` with every launch count at 0 and the peak memory
-    reset just before it; `on_step(step, value)` stamps each step. Fails
-    unless each of `kernels` was launched. Returns (fn's result, launch
-    counts, launches in the last step, median s/step after the second)."""
-    import torch
-
+    """Run `fn(on_step)` (a workload of spi_tpu_torch/tools/step_time.py)
+    with every launch count at 0 and the peak memory reset just before it;
+    each step is stamped. Fails unless each of `kernels` was launched.
+    Returns (fn's result, launch counts, launches in the last step, median
+    s/step after the second)."""
     from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.tools.step_time import steady_s, time_steps
 
-    stamps, counts = [], []
-
-    def on_step(step, value):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        counts.append(dict(_lib.launch_counts))
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    counts = []
     _lib.reset_launch_counts()
-    t_start = time.perf_counter()
-    result = fn(on_step)
-    torch.cuda.synchronize()
+    result, first_s, step_s, peak = time_steps(
+        fn, lambda: counts.append(dict(_lib.launch_counts)))
     launches = dict(_lib.launch_counts)
-    peak = torch.cuda.max_memory_allocated()
-    step_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
-    steady = statistics.median_high(step_s[1:])
+    steady = steady_s(step_s)
     per_step = {k: counts[-1][k] - counts[-2][k] for k in launches}
-    log(f"{label}: {len(stamps)} steps, first step {stamps[0] - t_start:.4f} s, then "
+    log(f"{label}: {len(counts)} steps, first step {first_s:.4f} s, then "
         f"{[round(t, 5) for t in step_s]} s; median after the second {steady:.5f} s/step")
     log(f"{label}: peak device memory {peak / 2**30:.3f} GiB")
     log(f"{label}: launches {launches}; per step {per_step}")
@@ -418,25 +425,19 @@ def drive(label, kernels, fn):
 
 
 def build_model(dev):
-    """ffhq512_128_config at its published widths, random seeded weights;
-    LPIPS-VGG16; a random 512^2 target; the canonical camera."""
+    """step_time's workload: ffhq512_128_config at its published widths,
+    random seeded weights; LPIPS-VGG16; a random 512^2 target; the
+    canonical camera."""
     import torch
 
-    from spi_tpu_torch.criteria.lpips import LPIPS
-    from spi_tpu_torch.models import TriPlaneGenerator, ffhq512_128_config
-    from spi_tpu_torch.utils import camera as cam
+    from spi_tpu_torch.tools import step_time
 
     t0 = time.perf_counter()
-    g = TriPlaneGenerator(ffhq512_128_config(), device=dev, seed=0)
-    lpips = LPIPS(device=dev)
-    res = g.cfg.img_resolution
-    target = torch.tanh(torch.randn(1, 3, res, res, device=dev,
-                                    generator=torch.Generator(device=dev).manual_seed(7)))
-    camera = cam.canonical_camera(device=dev)
+    model = step_time.build_model(dev)
     torch.cuda.synchronize()
-    log(f"ffhq512_128: {sum(p.numel() for p in g.parameters())} generator parameters, "
+    log(f"ffhq512_128: {sum(p.numel() for p in model[0].parameters())} generator parameters, "
         f"built in {time.perf_counter() - t0:.1f} s")
-    return g, lpips, target, camera
+    return model
 
 
 def check_projection(g, label, w, noise, dists):
@@ -450,22 +451,15 @@ def check_projection(g, label, w, noise, dists):
           f"{label}: noise is not finite")
 
 
-def phase_project(dev, model, num_steps=8):
+def phase_project(dev, model):
     """Stage-1 'sg' projection at full FFHQ-512 width. Returns (w, noise),
     the launch counts of the run and the median step time (s) of the
     steps after the second."""
-    import torch
+    from spi_tpu_torch.tools.step_time import PIVOT_STEPS, projection
 
-    from spi_tpu_torch.training.projectors import ProjectorSettings, project
-
-    g, lpips, target, camera = model
-    settings = ProjectorSettings(mode="sg", num_steps=num_steps, w_avg_samples=600)
     (w, noise, dists), launches, _, steady = drive(
-        "sg project", INVERSION_KERNELS,
-        lambda on_step: project(g, lpips, target, camera, settings,
-                                rng=torch.Generator(device=dev).manual_seed(8), device=dev,
-                                on_step=on_step))
-    check_projection(g, "sg project", w, noise, dists)
+        "sg project", INVERSION_KERNELS, projection(model, "sg", PIVOT_STEPS, dev))
+    check_projection(model[0], "sg project", w, noise, dists)
     return (w, noise), launches, steady
 
 
@@ -490,15 +484,11 @@ def phase_profile(dev, model, steady_s):
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from spi_tpu_torch.training.projectors import ProjectorSettings, project
+    from spi_tpu_torch.tools.step_time import projection
 
-    g, lpips, target, camera = model
-    settings = ProjectorSettings(mode="sg", num_steps=3, w_avg_samples=600)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=1, warmup=1, active=1)) as prof:
-        project(g, lpips, target, camera, settings,
-                rng=torch.Generator(device=dev).manual_seed(9), device=dev,
-                on_step=lambda step, dist: prof.step())
+        projection(model, "sg", 3, dev, seed=9)(lambda step, dist: prof.step())
     per_kernel = {}
     for evt in prof.key_averages():
         t = getattr(evt, "self_device_time_total", None)
@@ -528,23 +518,16 @@ def phase_mir(dev, model, num_steps=4):
     """Stage-1 'mir' projection at full width from a yawed camera, so that
     the mirror term's weight is nonzero. Both cameras render from one set
     of planes, so each render pass's splat serves both in one launch."""
-    import torch
-
-    from spi_tpu_torch.training.projectors import ProjectorSettings, project
+    from spi_tpu_torch.tools.step_time import MIR_YAW, projection
     from spi_tpu_torch.utils import camera as cam
 
-    g, lpips, target, _ = model
-    camera = cam.canonical_camera(yaw=0.4, device=dev)
+    camera = cam.canonical_camera(yaw=MIR_YAW, device=dev)
     weight = float(cam.cal_camera_weight(cam.mirror_camera(camera))[0])
-    log(f"mir project: yaw 0.4, mirror weight {weight:.5f}")
+    log(f"mir project: yaw {MIR_YAW}, mirror weight {weight:.5f}")
     check(weight > 0, "the mirror term has no weight at this camera")
-    settings = ProjectorSettings(mode="mir", num_steps=num_steps, w_avg_samples=600)
     (w, noise, dists), _, per_step, steady = drive(
-        "mir project", INVERSION_KERNELS,
-        lambda on_step: project(g, lpips, target, camera, settings,
-                                rng=torch.Generator(device=dev).manual_seed(12), device=dev,
-                                on_step=on_step))
-    check_projection(g, "mir project", w, noise, dists)
+        "mir project", INVERSION_KERNELS, projection(model, "mir", num_steps, dev))
+    check_projection(model[0], "mir project", w, noise, dists)
     check(per_step["plane_splat"] == 2,
           f"mir: {per_step['plane_splat']} splat launches a step, not one per render pass")
     return steady
@@ -554,22 +537,15 @@ def phase_tune(dev, model, pivot, num_steps=6):
     """Stage-2 recon-only tuning at full width from phase 4's w and noise;
     the threshold is below any LPIPS value, so random weights do not stop
     it early."""
-    import dataclasses
-
     import torch
 
-    from spi_tpu_torch.training.coaches import CoachInputs, pti_settings, tune_generator
+    from spi_tpu_torch.tools.step_time import tuning
     from spi_tpu_torch.utils.params import trainable_parameters
 
-    g, lpips, target, camera = model
-    w, noise = pivot
+    g = model[0]
     before = {k: p.detach().clone() for k, p in trainable_parameters(g).items()}
-    settings = dataclasses.replace(pti_settings(num_steps), lpips_threshold=-1.0)
     (_, (steps, last_lpips)), _, per_step, steady = drive(
-        "stage-2 tune", INVERSION_KERNELS,
-        lambda on_step: tune_generator(g, lpips, CoachInputs(target, camera, w), settings,
-                                       noise=noise, rng=torch.Generator(device=dev).manual_seed(13),
-                                       device=dev, on_step=on_step))
+        "stage-2 tune", INVERSION_KERNELS, tuning(model, pivot, num_steps, dev))
     after = trainable_parameters(g)
     finite = all(bool(torch.isfinite(p).all()) for p in after.values())
     moved = sum(not torch.equal(before[k], p) for k, p in after.items())
@@ -581,7 +557,9 @@ def phase_tune(dev, model, pivot, num_steps=6):
 
 
 def phase_tools(dev):
-    """Each probe tool's run, once, with the launch counts at 0 before it."""
+    """Each probe tool's run, once, with the launch counts at 0 before it;
+    fails where a tool's own check of its kernel against the plain version
+    is above the kernel's tolerance."""
     import importlib
 
     import torch
@@ -593,12 +571,17 @@ def phase_tools(dev):
         t0 = time.perf_counter()
         _lib.reset_launch_counts()
         log(f"== tool {tool}")
-        mod.main()
+        res = mod.run(dev)
         torch.cuda.synchronize()
         launches = {k: v for k, v in _lib.launch_counts.items() if v}
+        mod.report(res)
         log(f"tool {tool}: {time.perf_counter() - t0:.1f} s, launches {launches}")
         for k in kernels:
             check(launches.get(k, 0) > 0, f"kernel {k} was never launched by the {tool} tool")
+        tol = TOOL_TOLERANCES[tool]
+        for case, err in res["check"].items():
+            check(math.isfinite(err) and err <= tol,
+                  f"tool {tool}: {case} kernel error {err:.3e} above {tol}")
 
 
 def main() -> int:

@@ -26,9 +26,10 @@
 // its window in shared memory: the points are added into it with
 // shared-memory atomics, and the window is flushed with global atomicAdd,
 // because windows of different tiles overlap and CTAs run in no order.
-// The channel group is the largest divisor of C whose window fits in the
-// 227 KB a block may use (64x64 windows take 8 channels, 256x48 strips 4);
-// the flush adds four channels at a time with 128-bit atomicAdd.
+// The channel group is the largest divisor of C, a multiple of 4, whose
+// window fits in the 227 KB a block may use (64x64 windows take 8
+// channels, 256x48 strips 4); the flush adds four channels at a time with
+// 128-bit atomicAdd, so C must be a multiple of 4.
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 with a 700 W power
 // limit, K1 64x64 in f32: 1.59 ms against the 0.034 ms bound, where the
 // plain version takes 2.91 ms. The shared-memory f32 atomicAdd compiles to
@@ -118,20 +119,12 @@ win_scatter_kernel(const int* __restrict__ offsets, const float* __restrict__ fy
     if (gy < 0 || gy >= out_h || gx < 0 || gx >= out_w) return nullptr;
     return out + ((size_t)gy * out_w + gx) * c + c0 + i % cg;
   };
-  if (cg % 4 == 0) {  // 4 channels at a time, one 128-bit atomicAdd (sm_90)
-    for (int i = threadIdx.x * 4; i < cells; i += blockDim.x * 4) {
-      const float4 v = *reinterpret_cast<const float4*>(win + i);
-      if (v.x == 0.0f && v.y == 0.0f && v.z == 0.0f && v.w == 0.0f) continue;
-      float* d = dst(i);
-      if (d) atomicAdd(reinterpret_cast<float4*>(d), v);
-    }
-  } else {
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-      const float v = win[i];
-      if (v == 0.0f) continue;
-      float* d = dst(i);
-      if (d) atomicAdd(d, v);
-    }
+  // 4 channels at a time (cg is a multiple of 4), one 128-bit atomicAdd (sm_90).
+  for (int i = threadIdx.x * 4; i < cells; i += blockDim.x * 4) {
+    const float4 v = *reinterpret_cast<const float4*>(win + i);
+    if (v.x == 0.0f && v.y == 0.0f && v.z == 0.0f && v.w == 0.0f) continue;
+    float* d = dst(i);
+    if (d) atomicAdd(reinterpret_cast<float4*>(d), v);
   }
 }
 
@@ -149,10 +142,11 @@ int launch(const int* offsets, const float* fyx, const void* gft, float* out,
   return (int)cudaGetLastError();
 }
 
-// The channel group of a window: the largest divisor of C whose
-// (win_h, win_w, cg) f32 window fits in shared memory; 0 if none.
+// The channel group of a window: the largest divisor of C that is a
+// multiple of 4 and whose (win_h, win_w, cg) f32 window fits in shared
+// memory; 0 if none.
 int channel_group(int c, int win_h, int win_w) {
-  for (int cg = c; cg >= 1; --cg) {
+  for (int cg = c - c % 4; cg >= 4; cg -= 4) {
     if (c % cg == 0 && sizeof(float) * (size_t)win_h * win_w * cg <= (size_t)kMaxSmem) return cg;
   }
   return 0;

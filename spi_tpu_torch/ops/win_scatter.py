@@ -82,7 +82,8 @@ def win_scatter_cuda(offsets, fyx, gft, win_h: int, win_w: int, out_h: int, out_
     """Launch the kernel: same function as `win_scatter_plain`.
 
     offsets (T, 2) int32; fyx (T, R >= 2, P) float32; gft (T, C, P)
-    float32 or bfloat16; all contiguous on one CUDA device.
+    float32 or bfloat16, C a multiple of 4; all contiguous on one CUDA
+    device.
     """
     _check(offsets, fyx, gft, win_h, win_w, out_h, out_w)
     _lib.require(offsets, "offsets", dtype=torch.int32, ndim=2)
@@ -90,10 +91,12 @@ def win_scatter_cuda(offsets, fyx, gft, win_h: int, win_w: int, out_h: int, out_
     _lib.require(gft, "gft", dtype=gft.dtype, device=offsets.device, ndim=3)
     t, rows, p = fyx.shape
     c = gft.shape[1]
+    if c % 4:
+        raise ValueError(f"win_scatter kernel takes C a multiple of 4, got {c}")
     if t * rows * p >= 2**31 or t * c * p >= 2**31 or out_h * out_w * c >= 2**31:
         raise ValueError("win_scatter kernel takes fewer than 2^31 elements per tensor")
-    if win_h * win_w * 4 > 232448:
-        raise ValueError(f"a {win_h}x{win_w} window does not fit shared memory")
+    if win_h * win_w * 4 * 4 > 232448:
+        raise ValueError(f"a {win_h}x{win_w} window of 4 channels does not fit shared memory")
     out = torch.empty(out_h, out_w * c, dtype=torch.float32, device=gft.device)
     err = _lib.lib().spi_win_scatter(
         offsets.data_ptr(), fyx.data_ptr(), gft.data_ptr(), out.data_ptr(), t, rows, p, c,

@@ -81,14 +81,17 @@ def run(device=None, n_tiles: int = N_TILES, tile_p: int = TILE_P, check_tiles: 
     return out
 
 
-def main():
-    res = run()
+def report(res):
     print(f"device: {res['device']}")
     for name, err in res["check"].items():
         print(f"{name}: kernel vs plain, max abs err relative to max |plain| {err:.2e}")
     for name, t in res["times"].items():
         print(f"{name:20s} kernel {t['kernel_ms']:9.4f} ms  plain {t['plain_ms']:9.4f} ms  "
               f"-> {t['ns_per_row']:.3f} ns/row")
+
+
+def main():
+    report(run())
 
 
 if __name__ == "__main__":

@@ -36,8 +36,8 @@ N_POINTS = 16384 * 48  # one render pass
 
 
 def run(device=None, n_points: int = N_POINTS, iters: int = 20, warmup: int = 3) -> dict:
-    """Returns {'device', 'times': {name: ms}, 'gather_check': {shape:
-    max abs err of the kernel against torch.gather}}. On a CPU device the
+    """Returns {'device', 'times': {name: ms}, 'check': {shape: max abs
+    err of the kernel against torch.gather}}. On a CPU device the
     kernel rows run the plain version, timed on the host."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -83,16 +83,19 @@ def run(device=None, n_points: int = N_POINTS, iters: int = 20, warmup: int = 3)
         checks[label] = float((row_gather(tab32, idx) - row_gather_plain(tab32, idx)).abs().max())
         bench(f"row_gather kernel {label} f32", lambda: row_gather(tab32, idx))
         bench(f"torch.gather {label} f32 (int64 indices)", lambda: torch.gather(tab32, 0, idx64))
-    return {"device": device_name(dev), "times": times, "gather_check": checks}
+    return {"device": device_name(dev), "times": times, "check": checks}
 
 
-def main():
-    res = run()
+def report(res):
     print(f"device: {res['device']}")
     for name, ms in res["times"].items():
         print(f"{name:54s} {ms:9.4f} ms")
-    for label, err in res["gather_check"].items():
+    for label, err in res["check"].items():
         print(f"row_gather {label}: max abs err vs torch.gather {err:.1e}")
+
+
+def main():
+    report(run())
 
 
 if __name__ == "__main__":

@@ -5,11 +5,14 @@
 
 Builds the generator at its published widths with random seeded weights,
 LPIPS-VGG16 and a random 512^2 target, runs N steps of one stage-1
-projector mode or of stage-2 recon-only tuning (float32, TF32 off), and
-prints one line: the median s/step after the second step, every step's
-time, and the peak device memory. Run as a file (the second form), it
-imports `spi_tpu_torch` from PYTHONPATH, so it times another checkout's
-package on the same card ('sg' only where that tree has no other mode).
+projector mode ('mir' from a camera yawed by MIR_YAW) or of stage-2
+recon-only tuning from the pivot of PIVOT_STEPS 'sg' steps (float32, TF32
+off), and prints one line: the median s/step after the second step, every
+step's time, and the peak device memory. `chip_smoke.py` times the same
+workload through `build_model`, `projection`, `tuning` and `time_steps`.
+Run as a file (the second form), it imports `spi_tpu_torch` from
+PYTHONPATH, so it times another checkout's package on the same card
+('sg' only where that tree has no other mode).
 """
 
 from __future__ import annotations
@@ -21,6 +24,87 @@ import time
 
 import torch
 
+# The timed workload's seeds: weights, target, and each run's random draws.
+WEIGHT_SEED = 0
+TARGET_SEED = 7
+RUN_SEEDS = {"sg": 8, "sgw+": 8, "mir": 12, "tune": 13}
+MIR_YAW = 0.4
+PIVOT_STEPS = 8
+
+
+def build_model(dev):
+    """ffhq512_128_config at its published widths, random seeded weights;
+    LPIPS-VGG16; a random 512^2 target; the canonical camera."""
+    from spi_tpu_torch.criteria.lpips import LPIPS
+    from spi_tpu_torch.models import TriPlaneGenerator, ffhq512_128_config
+    from spi_tpu_torch.utils import camera as cam
+
+    g = TriPlaneGenerator(ffhq512_128_config(), device=dev, seed=WEIGHT_SEED)
+    lpips = LPIPS(device=dev)
+    res = g.cfg.img_resolution
+    target = torch.tanh(torch.randn(1, 3, res, res, device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(TARGET_SEED)))
+    return g, lpips, target, cam.canonical_camera(device=dev)
+
+
+def projection(model, mode, steps, dev, seed=None):
+    """`fn(on_step)` running `steps` steps of projector `mode` on `model`,
+    from its camera ('mir': from the camera yawed by MIR_YAW); returns
+    project's (w, noise, dists)."""
+    from spi_tpu_torch.training.projectors import ProjectorSettings, project
+
+    g, lpips, target, camera = model
+    if mode == "mir":
+        from spi_tpu_torch.utils import camera as cam
+
+        camera = cam.canonical_camera(yaw=MIR_YAW, device=dev)
+    settings = ProjectorSettings(mode=mode, num_steps=steps, w_avg_samples=600)
+    seed = RUN_SEEDS[mode] if seed is None else seed
+    return lambda on_step: project(g, lpips, target, camera, settings,
+                                   rng=torch.Generator(device=dev).manual_seed(seed),
+                                   device=dev, on_step=on_step)
+
+
+def tuning(model, pivot, steps, dev):
+    """`fn(on_step)` running `steps` stage-2 recon-only steps from `pivot`
+    = (w, noise), with the LPIPS threshold below any value so that random
+    weights do not stop it early; returns tune_generator's result."""
+    from spi_tpu_torch.training.coaches import CoachInputs, pti_settings, tune_generator
+
+    g, lpips, target, camera = model
+    w, noise = pivot
+    settings = dataclasses.replace(pti_settings(steps), lpips_threshold=-1.0)
+    return lambda on_step: tune_generator(
+        g, lpips, CoachInputs(target, camera, w), settings, noise=noise,
+        rng=torch.Generator(device=dev).manual_seed(RUN_SEEDS["tune"]), device=dev,
+        on_step=on_step)
+
+
+def time_steps(fn, after_stamp=None):
+    """Run `fn(on_step)` with the peak memory reset just before it; each
+    step is stamped after a device sync, then `after_stamp()` is called.
+    Returns (fn's result, first step s, [s of each later step], peak bytes)."""
+    stamps = []
+
+    def on_step(step, value):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if after_stamp is not None:
+            after_stamp()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    result = fn(on_step)
+    torch.cuda.synchronize()
+    step_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
+    return result, stamps[0] - t_start, step_s, torch.cuda.max_memory_allocated()
+
+
+def steady_s(step_s):
+    """The median s/step after the second step."""
+    return statistics.median_high(step_s[1:])
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -29,44 +113,21 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import spi_tpu_torch
-    from spi_tpu_torch.criteria.lpips import LPIPS
-    from spi_tpu_torch.models import TriPlaneGenerator, ffhq512_128_config
-    from spi_tpu_torch.training.projectors import ProjectorSettings, project
-    from spi_tpu_torch.utils import camera as cam
+    from spi_tpu_torch.utils.device import resolve_device
 
+    dev = resolve_device(torch.device("cuda", 0))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    g = TriPlaneGenerator(ffhq512_128_config(), device=dev, seed=0)
-    lpips = LPIPS(device=dev)
-    target = torch.tanh(torch.randn(1, 3, 512, 512, device=dev,
-                                    generator=torch.Generator(device=dev).manual_seed(7)))
-    camera = cam.canonical_camera(yaw=0.4 if args.mode == "mir" else 0.0, device=dev)
-    rng = torch.Generator(device=dev).manual_seed(8)
-    stamps = []
-
-    def on_step(step, value):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    model = build_model(dev)
     if args.mode == "tune":
-        from spi_tpu_torch.training.coaches import CoachInputs, pti_settings, tune_generator
-
-        w = g.mapping(torch.randn(1, g.z_dim, device=dev, generator=rng), camera)
-        settings = dataclasses.replace(pti_settings(args.steps), lpips_threshold=-1.0)
-        tune_generator(g, lpips, CoachInputs(target, camera, w), settings, rng=rng, device=dev,
-                       on_step=on_step)
+        w, noise, _ = time_steps(projection(model, "sg", PIVOT_STEPS, dev))[0]
+        fn = tuning(model, (w, noise), args.steps, dev)
     else:
-        project(g, lpips, target, camera,
-                ProjectorSettings(mode=args.mode, num_steps=args.steps, w_avg_samples=600),
-                rng=rng, device=dev, on_step=on_step)
-    step_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
+        fn = projection(model, args.mode, args.steps, dev)
+    _, _, step_s, peak = time_steps(fn)
     print(f"{args.mode} ({spi_tpu_torch.__file__}, {torch.cuda.get_device_name(dev)}): median "
-          f"{statistics.median_high(step_s[1:]):.5f} s/step after the second; steps "
-          f"{[round(t, 5) for t in step_s]}; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
-          f"GiB", flush=True)
+          f"{steady_s(step_s):.5f} s/step after the second; steps "
+          f"{[round(t, 5) for t in step_s]}; peak {peak / 2**30:.3f} GiB", flush=True)
 
 
 if __name__ == "__main__":

@@ -52,7 +52,5 @@ def trainable_parameters(module: nn.Module) -> dict[str, nn.Parameter]:
     """The parameters the stage-2 optimizer updates, by dotted name: the
     counterpart of `trainable_mask`, which is True for every leaf but the
     `noise_const` and `w_avg` buffers (base_coach.py:132-135). In the port
-    those are buffers, not parameters, so this is every parameter; the
-    suffix rule is kept so that the two select the same names."""
-    return {k: p for k, p in module.named_parameters()
-            if not k.endswith(("noise_const", "w_avg"))}
+    those are buffers, not parameters, so this is every parameter."""
+    return dict(module.named_parameters())

@@ -133,10 +133,11 @@ def test_tool_runs_on_cpu(tool):
         assert all(v == 0 for v in res["check"].values())
     elif tool == "profile_gather":
         res = profile_gather.run("cpu", n_points=4096, iters=1, warmup=0)
-        assert all(v == 0 for v in res["gather_check"].values())
+        assert all(v == 0 for v in res["check"].values())
     else:
         res = probe_scatter.run("cpu", n_rows=4096, res=16, n_samples=8, iters=1, warmup=0)
-        assert res["rmw_err"] == 0 and len(res["dup_stats"]) == 3
+        assert len(res["check"]) == 4 and all(v == 0 for v in res["check"].values())
+        assert len(res["dup_stats"]) == 3
         assert all(s["unique"] <= s["total"] == 16 * 16 * 8 for s in res["dup_stats"])
     assert res["device"] == "cpu"
     assert all(np.isfinite(v) and v >= 0 for v in res["times"].values()
