@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (spi_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent build/<dir> ...]
 
 Phases (any failure exits non-zero):
   1. build the CUDA kernel library from spi_tpu_torch/csrc;
   2. hold each kernel against its plain PyTorch version on the card at
-     the shapes its path gives it, and time kernel, plain version,
-     PyTorch library yardstick and the roofline bound;
+     the shapes its path gives it (the splat also at a fine and a
+     two-camera pass of a full-width render of phase 4's model), and time
+     kernel, plain version and PyTorch library yardstick, both
+     back-to-back and device-only (tools/timing.py), beside the roofline
+     bound; with --parent, time each such checkout's splat kernel in
+     turns with this one on the same inputs;
   3. tiny_test_config synthesis forward and w / noise / weight gradients:
      on the card with the kernels versus on the CPU with the plain
      versions, same weights, same injected random draws;
@@ -66,59 +70,129 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def coarse_pass_points(dev, res=128, samples=48):
-    """The coarse render pass's sample points: canonical camera, res^2
-    rays, `samples` stratified depths -> (1, res^2 * samples, 3)."""
+# Run by `splat_turns` in a checkout's own directory: times that tree's
+# splat_cuda device-only on the saved inputs (argv[1]) with this tree's
+# timing module (argv[2]); a tree whose splat_cuda takes no geometry gets none.
+TURN_CODE = """
+import importlib.util, inspect, json, sys
+import torch
+from spi_tpu_torch.ops import plane_splat as ps
+spec = importlib.util.spec_from_file_location("timing", sys.argv[2])
+timing = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timing)
+takes_geom = "geom" in inspect.signature(ps.splat_cuda).parameters
+torch.backends.cuda.matmul.allow_tf32 = False
+ms = {}
+for label, (coords, g, geom) in torch.load(sys.argv[1]).items():
+    coords, g = coords.cuda(), g.cuda()
+    extra = (ps.RayGeom(*geom),) if takes_geom and geom else ()
+    ms[label] = timing.device_ms(lambda: ps.splat_cuda(coords, g, 1.0, 256, 256, *extra))
+print(json.dumps({"tree": ps.__file__, "ms": ms}))
+"""
+
+
+def splat_turns(parent, inputs):
+    """Device-only splat times of the parent checkout `parent` and of this
+    one on the same card, in turns (parent, this, this, parent), each in a
+    process of its own run from its tree. `inputs`: {label: (coords, g,
+    geom)} on the card."""
+    import dataclasses
+    import os
+    from pathlib import Path
+
     import torch
 
-    from spi_tpu_torch.models.rendering import sample_rays
-    from spi_tpu_torch.models.rendering.renderer import sample_stratified
-    from spi_tpu_torch.utils import camera as cam
+    here = Path(__file__).resolve().parent
+    saved = here / "build" / "splat_turns.pt"
+    saved.parent.mkdir(exist_ok=True)
+    torch.save({k: (c.cpu(), g.cpu(), dataclasses.astuple(geom) if geom else None)
+                for k, (c, g, geom) in inputs.items()}, saved)
+    timing = here / "spi_tpu_torch" / "tools" / "timing.py"
+    runs = []
+    for tree in (Path(parent).resolve(), here, here, Path(parent).resolve()):
+        env = dict(os.environ, PYTHONPATH=str(tree))
+        proc = subprocess.run([sys.executable, "-c", TURN_CODE, str(saved), str(timing)],
+                              cwd=tree, env=env, capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"splat turn in {tree} failed:\n{proc.stderr[-3000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        log(f"splat turn {'parent' if tree != here else 'this tree'} ({runs[-1]['tree']}): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in runs[-1]["ms"].items()))
+    return runs
 
-    c = cam.canonical_camera(device=dev)
-    ro, rd = sample_rays(c[:, :16].reshape(-1, 4, 4), c[:, 16:].reshape(-1, 3, 3), res)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    depths = sample_stratified(ro, 2.25, 3.3, samples, generator=gen)
-    return (ro[:, :, None] + depths * rd[:, :, None]).reshape(1, -1, 3).contiguous()
 
-
-def phase_splat(dev):
+def phase_splat(dev, model, parents=()):
+    """Row 1: the splat against its plain version at the coarse pass (the
+    canonical camera's 128^2 rays x 48 stratified samples), a fine pass and
+    the 'mir' two-camera pass of a full-width render, and the coarse points
+    with an eighth moved onto two planes' edge and an eighth outside all
+    three. Per shape:
+    the reductions the kernel issues (distinct (tile, plane, texel) keys x
+    channel groups, counted in plain PyTorch), device-only and back-to-back
+    times, and the bound. Each parent checkout's kernel is timed in turns
+    with this one."""
     import torch
 
     from spi_tpu_torch.ops import plane_splat as ps
+    from spi_tpu_torch.tools.splat_tiles import coarse_pass_points, render_points
+    from spi_tpu_torch.tools.timing import device_ms, enqueue_us
 
     h = w = 256
     c = 32
-    coords = coarse_pass_points(dev)
-    p = coords.shape[1]
+    coarse = coarse_pass_points(dev)
+    border = coarse.clone()
+    q = coarse.shape[1] // 8
+    border[0, :q] = torch.tensor([0.499, 0.0, 0.0], device=dev)  # on the edge of planes 0, 1
+    border[0, q:2 * q] = torch.tensor([0.75, 0.75, 0.75], device=dev)  # outside all three
+    geom = ps.RayGeom(1, 128, 128, 48)
+    shapes = {"coarse": (coarse, geom), **render_points(dev, model), "border": (border, geom)}
     gen = torch.Generator(device=dev).manual_seed(1)
-    g = torch.randn(1, 3, p, c, device=dev, generator=gen)
-    got = ps.splat_cuda(coords, g, 1.0, h, w)
-    want = ps.splat_plain(coords, g, 1.0, h, w)
-    torch.cuda.synchronize()
-    err = rel_err(got, want)
-    max_abs = float((got - want).abs().max())
-    log(f"splat (1, 3, {p}, {c}) -> 3 x {h}x{w}x{c}: max abs err {max_abs:.3e}, "
-        f"rel {err:.3e} (tol {TOL_SPLAT})")
-    check(err <= TOL_SPLAT, "splat kernel disagrees with its plain version")
+    inputs, row = {}, None
+    for label, (coords, geom) in shapes.items():
+        p = coords.shape[1]
+        g = torch.randn(1, 3, p, c, device=dev, generator=gen)
+        got = ps.splat_cuda(coords, g, 1.0, h, w, geom)
+        want = ps.splat_plain(coords, g, 1.0, h, w)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        max_abs = float((got - want).abs().max())
+        reductions = ps.splat_tiled(coords, g, 1.0, h, w, geom)[1] * (c // 4)
+        del got, want
+        ms = time_ms(lambda: ps.splat_cuda(coords, g, 1.0, h, w, geom))
+        dms = device_ms(lambda: ps.splat_cuda(coords, g, 1.0, h, w, geom))
+        nbytes = g.numel() * 4 + coords.numel() * 4 + 3 * h * w * c * 4
+        b_ms, b_by = bound_ms(nbytes, 3 * 4 * 2 * c * p)
+        log(f"splat {label} (1, 3, {p}, {c}) {geom}: max abs err {max_abs:.3e}, rel {err:.3e} "
+            f"(tol {TOL_SPLAT}); {reductions} reductions (one a corner: {3 * p * c}); "
+            f"device-only {dms:.4f} ms, back-to-back {ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}, {nbytes / 1e6:.1f} MB)")
+        check(err <= TOL_SPLAT, f"splat kernel disagrees with its plain version at {label}")
+        if label != "border":
+            inputs[label] = (coords, g, geom)
+        if row is None:  # the table's row: the coarse pass
+            host = enqueue_us(lambda: ps.splat_cuda(coords, g, 1.0, h, w, geom))
+            plain = time_ms(lambda: ps.splat_plain(coords, g, 1.0, h, w), iters=5)
+            plain_d = device_ms(lambda: ps.splat_plain(coords, g, 1.0, h, w), iters=5)
+            # Yardstick: PyTorch's grid_sample backward on the same three
+            # planes (NCHW input, (3, 1, P, 2) grid), input gradient only.
+            grids = ps.project_onto_planes(coords * 2.0)[0][:, None]  # (3, 1, P, 2)
+            inp = torch.zeros(3, c, h, w, device=dev)
+            g_nchw = g[0].permute(0, 2, 1)[:, :, None, :].contiguous()  # (3, C, 1, P)
 
-    ms = time_ms(lambda: ps.splat_cuda(coords, g, 1.0, h, w))
-    plain = time_ms(lambda: ps.splat_plain(coords, g, 1.0, h, w), iters=5)
-    # Yardstick: PyTorch's grid_sample backward on the same three planes
-    # (NCHW input, (3, 1, P, 2) grid) for the input gradient only.
-    grids = ps.project_onto_planes(coords * 2.0)[0][:, None]  # (3, 1, P, 2)
-    inp = torch.zeros(3, c, h, w, device=dev)
-    g_nchw = g[0].permute(0, 2, 1)[:, :, None, :].contiguous()  # (3, C, 1, P)
-    lib_ms = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
-        g_nchw, inp, grids, 0, 0, False, [True, False]))
-    nbytes = g.numel() * 4 + coords.numel() * 4 + 3 * h * w * c * 4
-    b_ms, b_by = bound_ms(nbytes, 3 * 4 * 2 * c * p)
-    log(f"splat: kernel {ms:.4f} ms, plain {plain:.4f} ms, grid_sampler_2d_backward "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
+            def lib():
+                return torch.ops.aten.grid_sampler_2d_backward(
+                    g_nchw, inp, grids, 0, 0, False, [True, False])
+
+            lib_ms, lib_d = time_ms(lib), device_ms(lib)
+            log(f"splat coarse: host {host:.1f} us a call; plain {plain:.4f} ms (device-only "
+                f"{plain_d:.4f}), grid_sampler_2d_backward {lib_ms:.4f} ms (device-only {lib_d:.4f})")
+            row = {"max_abs_err": max_abs, "ms": ms, "device_ms": dms, "host_us": host,
+                   "plain_ms": plain, "plain_device_ms": plain_d, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": lib_ms, "library_device_ms": lib_d, "reductions": reductions}
+            del grids, inp, g_nchw
+    for parent in parents:
+        splat_turns(parent, inputs)
     return {"name": "plane_splat", "route": "cuda", "source": "spi_tpu_torch/csrc/plane_splat.cu",
-            "replaces": "spi_tpu/ops/plane_splat.py:113", "max_abs_err": max_abs,
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms}
+            "replaces": "spi_tpu/ops/plane_splat.py:113", **row}
 
 
 def phase_bias_act(dev):
@@ -130,6 +204,7 @@ def phase_bias_act(dev):
         bias_act_fwd_cuda,
         bias_act_plain,
     )
+    from spi_tpu_torch.tools.timing import device_ms
 
     # The 256^2 backbone block's activation, and the decoder's hidden
     # layer over one render pass (128^2 rays x 48 samples, 64 wide).
@@ -192,26 +267,29 @@ def phase_bias_act(dev):
             return torch.autograd.grad(yr, xr, g)
 
         bwd_plain = time_ms(plain_bwd)
+        dev_ms = [device_ms(fn) for fn in (
+            lambda: bias_act_fwd_cuda(x, b, *cfg), lambda: bias_act_bwd_cuda(g, x, b, *cfg),
+            lambda: bias_act_plain(x, b, dim=dim, act="lrelu", clamp=256.0 * spec.def_gain),
+            plain_bwd)]
         c = shape[dim]
         fb = bound_ms(2 * n * 4 + c * 4, 4 * n)
         bb = bound_ms(3 * n * 4 + c * 4, 5 * n)
         log(f"bias_act lrelu {label} {tuple(shape)}: fwd {fwd_ms:.4f} ms (plain {fwd_plain:.4f},"
             f" bound {fb[0]:.4f}), bwd {bwd_ms:.4f} ms (plain fwd+bwd {bwd_plain:.4f}, "
-            f"bound {bb[0]:.4f})")
-        rows[label] = {"fwd": (fwd_ms, fwd_plain, fb), "bwd": (bwd_ms, bwd_plain, bb)}
+            f"bound {bb[0]:.4f}); device-only: fwd {dev_ms[0]:.4f} (plain {dev_ms[2]:.4f}), "
+            f"bwd {dev_ms[1]:.4f} (plain fwd+bwd {dev_ms[3]:.4f}) ms")
+        rows[label] = {"fwd": (fwd_ms, fwd_plain, fb, dev_ms[0], dev_ms[2]),
+                       "bwd": (bwd_ms, bwd_plain, bb, dev_ms[1], dev_ms[3])}
         del x, g
     out = []
-    fwd_ms, fwd_plain, (fb_ms, fb_by) = rows["block256"]["fwd"]
-    bwd_ms, bwd_plain, (bb_ms, bb_by) = rows["block256"]["bwd"]
-    src = "spi_tpu_torch/csrc/bias_act.cu"
-    out.append({"name": "bias_act_fwd", "route": "cuda", "source": src,
-                "replaces": "spi_tpu/ops/bias_act_pallas.py:80",
-                "max_abs_err": worst["bias_act_fwd"], "ms": fwd_ms, "plain_ms": fwd_plain,
-                "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None})
-    out.append({"name": "bias_act_bwd", "route": "cuda", "source": src,
-                "replaces": "spi_tpu/ops/bias_act_pallas.py:96",
-                "max_abs_err": worst["bias_act_bwd"], "ms": bwd_ms, "plain_ms": bwd_plain,
-                "bound_ms": bb_ms, "bound_by": bb_by, "library_ms": None})
+    for name, line in (("fwd", 80), ("bwd", 96)):
+        ms, plain, (b_ms, b_by), dms, plain_d = rows["block256"][name]
+        out.append({"name": f"bias_act_{name}", "route": "cuda",
+                    "source": "spi_tpu_torch/csrc/bias_act.cu",
+                    "replaces": f"spi_tpu/ops/bias_act_pallas.py:{line}",
+                    "max_abs_err": worst[f"bias_act_{name}"], "ms": ms, "device_ms": dms,
+                    "plain_ms": plain, "plain_device_ms": plain_d, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None, "library_device_ms": None})
     return out
 
 
@@ -222,6 +300,7 @@ def phase_win_scatter(dev):
     import torch
 
     from spi_tpu_torch.ops.win_scatter import win_scatter_cuda, win_scatter_plain
+    from spi_tpu_torch.tools.timing import device_ms
     from spi_tpu_torch.tools.probe_winscatter import C, H, N_TILES, TILE_P, W, WINDOWS, make_inputs
 
     worst, row = 0.0, None
@@ -250,45 +329,80 @@ def phase_win_scatter(dev):
                 f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
             check(err <= TOL_SCATTER, f"win_scatter {name} {dt} disagrees with its plain version")
             if row is None:  # the table's row: K1 64x64 in f32
-                row = (ms, plain, b_ms, b_by)
+                dms = device_ms(lambda: win_scatter_cuda(*args, *geom))
+                plain_d = device_ms(lambda: win_scatter_plain(*args, *geom), iters=3)
+                log(f"win_scatter {name} {dt}: device-only kernel {dms:.4f} ms, plain "
+                    f"{plain_d:.4f} ms")
+                row = {"ms": ms, "device_ms": dms, "plain_ms": plain, "plain_device_ms": plain_d,
+                       "bound_ms": b_ms, "bound_by": b_by}
             del args, got, want
-    ms, plain, b_ms, b_by = row
     return {"name": "win_scatter", "route": "cuda", "source": "spi_tpu_torch/csrc/win_scatter.cu",
-            "replaces": "tools/probe_winscatter_r5.py:50", "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "replaces": "tools/probe_winscatter_r5.py:50", "max_abs_err": worst, **row,
+            "library_ms": None, "library_device_ms": None}
 
 
 def phase_row_gather(dev):
-    """Row 5: the row gather at the probe's shape (65,536 rows of 32 f32,
-    one row index broadcast over the columns) and at the render pass's
-    (786,432 rows gathered from 65,536). Bitwise equal to torch.gather."""
+    """Row 5: the row gather at the probe's shape (65,536 rows of 32 f32)
+    and at the render pass's (786,432 rows gathered from 65,536), with a
+    row index broadcast over the columns (the probe's form), per-element
+    indices, and per-element indices with some out of range. Bitwise equal
+    to torch.gather where the index is in range, 0 elsewhere (where
+    torch.gather would raise). Times of the broadcast form, device-only
+    and back-to-back, beside torch.gather on int64 indices."""
     import torch
 
     from spi_tpu_torch.ops.gather_scatter import row_gather_cuda, row_gather_plain
+    from spi_tpu_torch.tools.timing import device_ms, enqueue_us
 
     gen = torch.Generator(device=dev).manual_seed(10)
-    tab = torch.randn(65536, 32, device=dev, generator=gen)
+    n_tab = 65536
+    tab = torch.randn(n_tab, 32, device=dev, generator=gen)
     rows = {}
     for label, n in (("probe", 65536), ("render pass", 786432)):
-        idx = torch.randint(0, 65536, (n, 1), device=dev, generator=gen,
+        idx = torch.randint(0, n_tab, (n, 1), device=dev, generator=gen,
                             dtype=torch.int32).expand(n, 32).contiguous()
+        per_element = torch.randint(0, n_tab, (n, 32), device=dev, generator=gen,
+                                    dtype=torch.int32)
+        outside = per_element.clone()
+        outside[::7, 3] = n_tab
+        outside[::5, :4] = -1
+        outside[2::5] = n_tab + 5  # whole rows: the broadcast branch's range check
+        for kind, ix in (("broadcast", idx), ("per-element", per_element),
+                         ("out of range", outside)):
+            got = row_gather_cuda(tab, ix)
+            live = (ix >= 0) & (ix < n_tab)
+            want = torch.gather(tab, 0, ix.clamp(0, n_tab - 1).long())
+            torch.cuda.synchronize()
+            equal = torch.equal(got[live], want[live]) and not bool(got[~live].any())
+            log(f"row_gather {label} ({n}, 32) {kind}: {int((~live).sum())} indices out of "
+                f"range; bitwise equal to torch.gather in range, 0 elsewhere: {equal}")
+            check(equal, f"row_gather {label} {kind} differs from torch.gather")
+        check(torch.equal(row_gather_cuda(tab, idx), row_gather_plain(tab, idx)),
+              f"row_gather {label} differs from its plain version")
         idx64 = idx.long()
-        got = row_gather_cuda(tab, idx)
-        equal = torch.equal(got, row_gather_plain(tab, idx))
-        ms = time_ms(lambda: row_gather_cuda(tab, idx))
-        plain = time_ms(lambda: row_gather_plain(tab, idx))
-        lib_ms = time_ms(lambda: torch.gather(tab, 0, idx64))
+        t = {}
+        for name, fn in (("kernel", lambda: row_gather_cuda(tab, idx)),
+                         ("torch.gather", lambda: torch.gather(tab, 0, idx64)),
+                         ("plain", lambda: row_gather_plain(tab, idx))):
+            t[name] = (time_ms(fn), device_ms(fn), enqueue_us(fn))
+        el64 = per_element.long()
+        el = (device_ms(lambda: row_gather_cuda(tab, per_element)),
+              device_ms(lambda: torch.gather(tab, 0, el64)))
         nbytes = 2 * idx.numel() * 4 + tab.numel() * 4
         b_ms, b_by = bound_ms(nbytes, 0)
-        log(f"row_gather {label} ({n}, 32) from (65536, 32): bitwise equal {equal}; kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms (int32 -> int64 + torch.gather), torch.gather "
-            f"int64 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
-        check(equal, f"row_gather {label} differs from torch.gather")
-        rows[label] = (ms, plain, lib_ms, b_ms, b_by)
-    ms, plain, lib_ms, b_ms, b_by = rows["probe"]
+        log(f"row_gather {label} broadcast: " + ", ".join(
+            f"{k} {a:.4f} ms back-to-back, {d:.4f} ms device-only, host {u:.1f} us a call"
+            for k, (a, d, u) in t.items())
+            + f"; per-element device-only: kernel {el[0]:.4f} ms, torch.gather {el[1]:.4f} ms; "
+            f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
+        rows[label] = (t, b_ms, b_by)
+    t, b_ms, b_by = rows["probe"]
     return {"name": "row_gather", "route": "cuda", "source": "spi_tpu_torch/csrc/row_gather.cu",
-            "replaces": "tools/profile_gather.py:111", "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            "replaces": "tools/profile_gather.py:111", "max_abs_err": 0.0,
+            "ms": t["kernel"][0], "device_ms": t["kernel"][1], "host_us": t["kernel"][2],
+            "plain_ms": t["plain"][0], "plain_device_ms": t["plain"][1],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["torch.gather"][0],
+            "library_device_ms": t["torch.gather"][1], "library_host_us": t["torch.gather"][2]}
 
 
 def phase_row_scatter_add(dev):
@@ -298,6 +412,7 @@ def phase_row_scatter_add(dev):
     import torch
 
     from spi_tpu_torch.ops.gather_scatter import row_scatter_add_cuda, row_scatter_add_plain
+    from spi_tpu_torch.tools.timing import device_ms
 
     gen = torch.Generator(device=dev).manual_seed(11)
     n, n_out = 786432, 65536
@@ -328,13 +443,19 @@ def phase_row_scatter_add(dev):
         check(err <= TOL_SCATTER, f"row_scatter_add at C = {c} with {int(dead * 100)}% of rows "
               "out of range disagrees with its plain version")
         if row is None:  # the table's row: the Pallas probe's shape
-            row = (ms, plain, lib_ms, b_ms, b_by)
+            dms, plain_d, lib_d = (device_ms(fn) for fn in (
+                lambda: row_scatter_add_cuda(rows, upd, n_out),
+                lambda: row_scatter_add_plain(rows, upd, n_out),
+                lambda: torch.zeros(n_out + 1, c, device=dev).index_add_(0, rows64, upd)))
+            log(f"row_scatter_add ({n}, {c}): device-only kernel {dms:.4f} ms, plain "
+                f"{plain_d:.4f} ms, index_add_ {lib_d:.4f} ms")
+            row = {"ms": ms, "device_ms": dms, "plain_ms": plain, "plain_device_ms": plain_d,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                   "library_device_ms": lib_d}
         del upd, rows, rows64, got, want
-    ms, plain, lib_ms, b_ms, b_by = row
     return {"name": "row_scatter_add", "route": "cuda",
             "source": "spi_tpu_torch/csrc/row_scatter_add.cu",
-            "replaces": "tools/probe_scatter_r5.py:161", "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            "replaces": "tools/probe_scatter_r5.py:161", "max_abs_err": worst, **row}
 
 
 def phase_tiny_synthesis(dev):
@@ -584,8 +705,16 @@ def phase_tools(dev):
                   f"tool {tool}: {case} kernel error {err:.3e} above {tol}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", action="append", default=[],
+                    help="another checkout (e.g. a git archive under build/) whose splat kernel "
+                    "phase 2 times in turns with this one; may be given more than once")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -605,11 +734,11 @@ def main() -> int:
 
     path = phase(1, "build", lambda: (_lib.build(verbose=True), _lib.lib())[0])
     log(f"phase 1: built {path.name}")
-    kernels = phase(2, "kernels vs plain", lambda: [
-        phase_splat(dev), *phase_bias_act(dev), phase_win_scatter(dev), phase_row_gather(dev),
-        phase_row_scatter_add(dev)])
-    phase(3, "tiny synthesis card vs CPU", phase_tiny_synthesis, dev)
     model = build_model(dev)
+    kernels = phase(2, "kernels vs plain", lambda: [
+        phase_splat(dev, model, args.parent), *phase_bias_act(dev), phase_win_scatter(dev),
+        phase_row_gather(dev), phase_row_scatter_add(dev)])
+    phase(3, "tiny synthesis card vs CPU", phase_tiny_synthesis, dev)
     pivot, launches, sg_s = phase(4, "sg projection", phase_project, dev, model)
     phase(5, "profile", phase_profile, dev, model, sg_s)
     mir_s = phase(6, "mir projection", phase_mir, dev, model)

@@ -24,10 +24,11 @@ import torch.nn.functional as F
 
 from spi_tpu_torch.models.rendering import math_utils
 from spi_tpu_torch.models.rendering.ray_marcher import march_rays, march_rays_merge
-from spi_tpu_torch.ops.plane_splat import project_onto_planes, sample_planes
+from spi_tpu_torch.ops.plane_splat import RayGeom, project_onto_planes, sample_planes
 
 __all__ = [
     "ImportanceRenderer",
+    "RayGeom",
     "RenderingOptions",
     "project_onto_planes",
     "sample_from_planes",
@@ -51,19 +52,21 @@ class RenderingOptions:
     white_back: bool = False
 
 
-def sample_from_planes(planes_nhwc, coordinates, box_warp: float):
+def sample_from_planes(planes_nhwc, coordinates, box_warp: float, geom: RayGeom | None = None):
     """Bilinear-sample (N|1, 3, H*W, C) channels-last planes at (N, M, 3)
-    world points -> (N, 3, M, C) (EG3D renderer.py:55-65)."""
+    world points -> (N, 3, M, C) (EG3D renderer.py:55-65). `geom`, the ray
+    geometry of the N * M points (spi_tpu's `geom=RayGeom`), only decides
+    which points share a tile of the splat kernel."""
     n_tab, n_planes, _, c = planes_nhwc.shape
     n, m, _ = coordinates.shape
     if n_tab == 1 and n > 1:
         # Planes shared by a camera batch: merge the batch into the point
         # axis so each plane is one table.
-        out = sample_planes(planes_nhwc, coordinates.reshape(1, n * m, 3), box_warp)
+        out = sample_planes(planes_nhwc, coordinates.reshape(1, n * m, 3), box_warp, geom)
         return out[0].reshape(n_planes, n, m, c).permute(1, 0, 2, 3)
     if n_tab != n:
         raise ValueError(f"{n_tab} plane sets for {n} point sets")
-    return sample_planes(planes_nhwc, coordinates, box_warp)
+    return sample_planes(planes_nhwc, coordinates, box_warp, geom)
 
 
 def _draw_uniform(shape, device, generator):
@@ -167,13 +170,15 @@ class ImportanceRenderer:
     options: RenderingOptions
 
     def __call__(self, planes_nhwc, decoder: Callable, ray_origins, ray_directions,
-                 draws: dict | None = None, generator=None):
+                 draws: dict | None = None, generator=None, rays_w: int | None = None):
         """Render (N, M, 3) rays -> (rgb (N, M, C), depth (N, M, 1),
         weight sum (N, M, 1)).
 
         draws: optional {'stratified': (N, M, S, 1) uniforms,
         'exponential': (N*M, I+1) Exp(1) draws}; what is not given is
-        drawn from `generator`.
+        drawn from `generator`. rays_w: the scanline width of the rays
+        (the render resolution); it only informs the splat kernel's ray
+        tiles and may be omitted.
         """
         opts = self.options
         draws = draws or {}
@@ -196,16 +201,18 @@ class ImportanceRenderer:
         )
         n, m, _, _ = depths_coarse.shape
 
-        def run(depths):
+        def run(depths, fine):
             k = depths.shape[2]
             pts = (ray_origins[:, :, None, :] + depths * ray_directions[:, :, None, :])
-            feats = sample_from_planes(planes_nhwc, pts.reshape(n, -1, 3), opts.box_warp)
+            geom = (RayGeom(n, m // rays_w, rays_w, k, fine)
+                    if rays_w and m % rays_w == 0 else None)
+            feats = sample_from_planes(planes_nhwc, pts.reshape(n, -1, 3), opts.box_warp, geom)
             feats = feats.mean(dim=1)  # aggregate planes (EG3D triplane.py:125)
             dirs = ray_directions[:, :, None, :].expand(n, m, k, 3).reshape(n, -1, 3)
             rgb, sigma = decoder(feats, dirs)
             return rgb.reshape(n, m, k, rgb.shape[-1]), sigma.reshape(n, m, k, 1)
 
-        colors_coarse, densities_coarse = run(depths_coarse)
+        colors_coarse, densities_coarse = run(depths_coarse, False)
 
         n_imp = opts.depth_resolution_importance
         if n_imp > 0:
@@ -214,7 +221,7 @@ class ImportanceRenderer:
             depths_fine = sample_importance(depths_coarse, weights, n_imp,
                                             exponential=draws.get("exponential"),
                                             generator=generator)
-            colors_fine, densities_fine = run(depths_fine)
+            colors_fine, densities_fine = run(depths_fine, True)
             rgb_final, depth_final, weights = march_rays_merge(
                 colors_coarse, densities_coarse, depths_coarse,
                 colors_fine, densities_fine, depths_fine, white_back=opts.white_back,

@@ -183,7 +183,7 @@ class TriPlaneGenerator(nn.Module):
         ray_origins, ray_directions = sample_rays(cam2world, intrinsics, res)
         feature_samples, depth_samples, _ = self.renderer(
             planes, self.decoder, ray_origins, ray_directions, draws=draws,
-            generator=generator,
+            generator=generator, rays_w=res,
         )
         feature_image = feature_samples.permute(0, 2, 1).reshape(n, feature_samples.shape[-1],
                                                                  res, res)

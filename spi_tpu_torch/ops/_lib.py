@@ -41,7 +41,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: every function returns cudaGetLastError() after its launch.
 _SIGNATURES = {
-    "spi_plane_splat": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "spi_plane_splat": [_P, _P, _P, *[_I] * 11, _F, _P],
     "spi_bias_act_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     "spi_bias_act_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     "spi_win_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -133,12 +133,21 @@ def check(err: int, name: str) -> None:
 
 
 def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current stream on `device`, read on every call
+    (never cached, so a change of stream is followed) without building a
+    `torch.cuda.Stream` object."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def require(t: torch.Tensor, name: str, *, dtype=torch.float32, device=None,
             ndim: int | None = None, align: int = 4) -> None:
-    """Raise unless `t` is a contiguous CUDA tensor the kernels take."""
+    """Raise unless `t` is a contiguous CUDA tensor the kernels take. The
+    usual case is one combined test; the reasons are sorted out only when
+    it fails."""
+    if (t.is_cuda and t.dtype is dtype and t.is_contiguous()
+            and (ndim is None or t.ndim == ndim) and t.data_ptr() % align == 0
+            and (device is None or t.get_device() == device.index)):
+        return
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:

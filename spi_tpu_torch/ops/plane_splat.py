@@ -11,9 +11,15 @@ fallback between the two.
 
 The TPU version tiled points by ray, reduced each tile into a VMEM
 window on the MXU and fell back to an XLA scatter when a window
-overflowed. The CUDA kernel is exact for any point layout, so every
-render pass (coarse, fine, multi-camera) uses it, with no window, no
-overflow fallback and no tile reordering.
+overflowed. The CUDA kernel also works per ray tile, but groups each
+tile's corners by texel and issues one global reduction per distinct
+texel, so it is exact for any point layout: every render pass (coarse, fine,
+multi-camera) uses it, with no window and no overflow fallback. The ray
+geometry (`RayGeom`, as spi_tpu's renderer passes it) only decides which
+points share a tile; without it a tile is a run of consecutive points.
+`tile_points` and `splat_tiled` restate the kernel's tiling and its
+per-tile reduction in plain PyTorch, for the CPU tests and for counting
+the reductions a pass issues.
 
 The coordinates get no gradient: `sample_planes` raises if they need
 one, rather than returning a silent zero as spi_tpu's windowed path did
@@ -23,6 +29,7 @@ coarse depths come from the camera, importance depths are detached).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -66,11 +73,116 @@ def splat_plain(coordinates, g, box_warp: float, h: int, w: int):
     return out.reshape(n, 3, h * w, c)
 
 
-def splat_cuda(coordinates, g, box_warp: float, h: int, w: int):
+@dataclasses.dataclass(frozen=True)
+class RayGeom:
+    """Ray-bundle structure of one render pass (spi_tpu's RayGeom): points
+    are ordered index = ((view * rays_h + vy) * rays_w + vx) * n_samples + s.
+    `fine` marks importance-sampled depths."""
+
+    n_views: int
+    rays_h: int
+    rays_w: int
+    n_samples: int
+    fine: bool = False
+
+    @property
+    def n_points(self) -> int:
+        return self.n_views * self.rays_h * self.rays_w * self.n_samples
+
+
+# Most points one block of the splat kernel owns (csrc/plane_splat.cu
+# instantiates 256 and 512).
+TILE_POINTS = 256
+# Ray tiles (rays down, rays across, samples) of a coarse and of a fine
+# pass, the fastest of those tools/splat_tiles.py times at full width:
+# tall tiles share the most texels, since a ray's neighbours below it fall
+# on the same texels of planes 1 and 2.
+RAY_TILE = (16, 4, 4)
+RAY_TILE_FINE = (16, 2, 8)
+
+
+def kernel_tiling(geom: RayGeom | None, n: int, m: int, tile=None):
+    """The kernel's view of the points of `n` tables of `m` points:
+    (views per table, rays_h, rays_w, samples) and the tile (tv, tu, ts).
+    Without a geometry every table is one row of `m` rays of one sample,
+    tiled in runs of TILE_POINTS consecutive points."""
+    if geom is None:
+        return (1, 1, m, 1), tile or (1, TILE_POINTS, 1)
+    if geom.n_points != n * m or geom.n_views % n:
+        raise ValueError(f"ray geometry {geom} does not describe {n} tables of {m} points")
+    tv, tu, ts = tile or (RAY_TILE_FINE if geom.fine else RAY_TILE)
+    tile = (min(tv, geom.rays_h), min(tu, geom.rays_w), min(ts, geom.n_samples))
+    return (geom.n_views // n, geom.rays_h, geom.rays_w, geom.n_samples), tile
+
+
+def tile_points(n: int, m: int, layout, tile, device=None):
+    """(tiles, tv * tu * ts) index of each tile's points into the (n * m)
+    points, -1 where a ragged tile is masked: tiles ordered (table, view,
+    tile row, tile column, sample group) and points (ray row, ray column,
+    sample) within a tile, as the kernel numbers its blocks and points."""
+    views, rays_h, rays_w, samples = layout
+    tv, tu, ts = tile
+    nh, nw, ns = -(-rays_h // tv), -(-rays_w // tu), -(-samples // ts)
+    t = torch.arange(n * views * nh * nw * ns, device=device)[:, None]
+    tb, view = t // (views * nh * nw * ns), t // (nh * nw * ns) % views
+    ty, tx, tg = t // (nw * ns) % nh, t // ns % nw, t % ns
+    loc = torch.arange(tv * tu * ts, device=device)[None]
+    ry = ty * tv + loc // (tu * ts)
+    rx = tx * tu + loc // ts % tu
+    sp = tg * ts + loc % ts
+    point = tb * m + ((view * rays_h + ry) * rays_w + rx) * samples + sp
+    return torch.where((ry < rays_h) & (rx < rays_w) & (sp < samples), point, -1)
+
+
+def splat_tiled(coordinates, g, box_warp: float, h: int, w: int, geom: RayGeom | None = None,
+                tile=None):
+    """The kernel's algorithm in plain PyTorch: for each (tile, plane), the
+    in-plane corners' (tile, texel) keys, one sum of weight x cotangent per
+    distinct key, and one add of each sum into the table. Returns the same
+    plane gradient as `splat_plain` and the number of distinct (tile,
+    plane, texel) keys: the kernel issues that many reductions per
+    4-channel group."""
+    n, m, _ = coordinates.shape
+    c = g.shape[-1]
+    layout, tile = kernel_tiling(geom, n, m, tile)
+    pts = tile_points(n, m, layout, tile, device=g.device)
+    live = pts >= 0
+    tile_id = torch.arange(pts.shape[0], device=g.device)[:, None].expand_as(pts)[live]
+    q = pts[live]
+    tb, loc = q // m, q % m
+    tile_table = torch.arange(pts.shape[0], device=g.device) // (pts.shape[0] // n)
+    acc = torch.promote_types(g.dtype, torch.float32)
+    fx, fy = _plane_texels(coordinates.to(acc), box_warp, h, w)
+    gf = g.to(acc)
+    out = torch.zeros(n * 3 * h * w, c, dtype=acc, device=g.device)
+    n_keys = 0
+    for p in range(3):
+        px, py = fx[tb * 3 + p, loc], fy[tb * 3 + p, loc]
+        x0, y0 = torch.floor(px), torch.floor(py)
+        gp = gf[tb, p, loc]
+        keys, rows, wts = [], [], []
+        for (flat, wgt), (dx, dy) in zip(bilinear_corners(px, py, h, w),
+                                         ((0, 0), (1, 0), (0, 1), (1, 1))):
+            keep = (x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0) & (y0 + dy < h)
+            keys.append((tile_id * (h * w) + flat)[keep])
+            rows.append(gp[keep])
+            wts.append(wgt[keep])
+        uniq, inv = torch.unique(torch.cat(keys), return_inverse=True)
+        n_keys += uniq.numel()
+        sums = torch.zeros(uniq.numel(), c, dtype=acc, device=g.device)
+        sums.index_add_(0, inv, torch.cat(rows) * torch.cat(wts)[:, None])
+        dest = (tile_table[uniq // (h * w)] * 3 + p) * (h * w) + uniq % (h * w)
+        out.index_add_(0, dest, sums)
+    return out.reshape(n, 3, h * w, c), n_keys
+
+
+def splat_cuda(coordinates, g, box_warp: float, h: int, w: int, geom: RayGeom | None = None,
+               tile=None):
     """Launch the splat kernel: same function as `splat_plain`.
 
     coordinates: (N, M, 3) float32; g: (N, 3, M, C) float32 with C a
-    multiple of 4; both contiguous on one CUDA device.
+    multiple of 4; both contiguous on one CUDA device. `geom` describes
+    the N * M points (see `kernel_tiling`); `tile` overrides RAY_TILE / RAY_TILE_FINE.
     """
     _lib.require(coordinates, "coordinates", ndim=3)
     _lib.require(g, "cotangent", device=coordinates.device, ndim=4, align=16)
@@ -81,12 +193,17 @@ def splat_cuda(coordinates, g, box_warp: float, h: int, w: int):
     c = g.shape[3]
     if c % 4:
         raise ValueError(f"splat kernel takes C a multiple of 4, got {c}")
-    if n * 3 * m * (c // 4) >= 2**31 or n * 3 * h * w * c >= 2**31:
-        raise ValueError("splat kernel takes fewer than 2^31 work items and table entries")
+    if n * 3 * m * c >= 2**31 or n * 3 * h * w * c >= 2**31:
+        raise ValueError("splat kernel takes fewer than 2^31 cotangent and table entries")
+    (views, rays_h, rays_w, samples), (tv, tu, ts) = kernel_tiling(geom, n, m, tile)
+    if tv * tu * ts > 512:
+        raise ValueError(f"splat kernel takes at most 512 points a tile, got {(tv, tu, ts)}")
+    if h * w > 2**20:
+        raise ValueError(f"splat kernel takes tables of at most 2^20 texels, got {h}x{w}")
     out = torch.empty(n, 3, h * w, c, dtype=torch.float32, device=g.device)
     err = _lib.lib().spi_plane_splat(
-        coordinates.data_ptr(), g.data_ptr(), out.data_ptr(), n, m, h, w, c,
-        2.0 / box_warp, _lib.stream_handle(g.device),
+        coordinates.data_ptr(), g.data_ptr(), out.data_ptr(), n, views, rays_h, rays_w,
+        samples, tv, tu, ts, h, w, c, 2.0 / box_warp, _lib.stream_handle(g.device),
     )
     _lib.check(err, "plane_splat")
     _lib.launch_counts["plane_splat"] += 1
@@ -95,7 +212,7 @@ def splat_cuda(coordinates, g, box_warp: float, h: int, w: int):
 
 class _SamplePlanes(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, planes, coordinates, box_warp):
+    def forward(ctx, planes, coordinates, box_warp, geom):
         if ctx.needs_input_grad[1]:
             raise RuntimeError(
                 "sample_planes computes no gradient for the sample coordinates; "
@@ -107,25 +224,27 @@ class _SamplePlanes(torch.autograd.Function):
             raise ValueError(f"planes {tuple(planes.shape)} / coordinates "
                              f"{tuple(coordinates.shape)} do not match")
         m = coordinates.shape[1]
+        kernel_tiling(geom, n, m)  # raises on a geometry that does not fit the points
         grids = project_onto_planes(coordinates * (2.0 / box_warp))
         out = sample_flat(planes.reshape(n * 3, hw, c), grids.reshape(n * 3, m, 2), h, w)
         ctx.save_for_backward(coordinates)
-        ctx.geom = (box_warp, h, w, planes.dtype)
+        ctx.geom = (box_warp, h, w, planes.dtype, geom)
         return out.reshape(n, 3, m, c)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         (coordinates,) = ctx.saved_tensors
-        box_warp, h, w, dtype = ctx.geom
+        box_warp, h, w, dtype, geom = ctx.geom
         if g.is_cuda:
-            d = splat_cuda(coordinates.contiguous(), g.contiguous(), box_warp, h, w)
+            d = splat_cuda(coordinates.contiguous(), g.contiguous(), box_warp, h, w, geom)
         else:
             d = splat_plain(coordinates, g, box_warp, h, w)
-        return d.to(dtype), None, None
+        return d.to(dtype), None, None, None
 
 
-def sample_planes(planes, coordinates, box_warp: float):
+def sample_planes(planes, coordinates, box_warp: float, geom: RayGeom | None = None):
     """Bilinear-sample (N, 3, H*W, C) channels-last planes at (N, M, 3)
-    world points -> (N, 3, M, C). The backward is the splat."""
-    return _SamplePlanes.apply(planes, coordinates, box_warp)
+    world points -> (N, 3, M, C). The backward is the splat; `geom`, the
+    ray geometry of the N * M points, only decides the kernel's tiles."""
+    return _SamplePlanes.apply(planes, coordinates, box_warp, geom)

@@ -11,6 +11,8 @@ and scatter-adds sum in another order: 1e-4 / 1e-5 absolute on O(1)
 values, as spi_tpu's own torch-parity tests allow.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -271,26 +273,143 @@ def test_splat_plain_matches_splat_xla(case, cotangent):
         np.testing.assert_allclose(got[0, p], np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_plane_grad(case, impl):
+    """spi_tpu's plane gradient of sum(sample_from_planes(...) * cotangent)
+    with the ray geometry passed: `impl='windowed'` runs the Pallas splat in
+    interpret mode (with its overflow fallback), 'xla' the autodiff scatter."""
+    coords = _coords(case)
+    ct = _rand(1, 3, _geom().n_points, C, seed=41)
+
+    def loss(p):
+        out = JR.sample_from_planes(p, jnp.asarray(coords), 1.0, geom=_geom(case == "fine"),
+                                    impl=impl)
+        return jnp.sum(out * ct)
+    return np.asarray(jax.grad(loss)(jnp.asarray(_rand(1, 3, H * W, C, seed=40))))
+
+
+def _port_plane_grad(planes, coords, cotangent, geom=None):
+    tp = _t(planes, True)
+    out = PR.sample_from_planes(tp, _t(coords), 1.0, geom)
+    (out * _t(cotangent)).sum().backward()
+    return tp.grad.numpy()
+
+
 @pytest.mark.parametrize("case", SPLAT_CASES)
 def test_sample_planes_grad_matches_windowed_splat(case, planes, cotangent):
     """The port's plane gradient == spi_tpu's `splat_planes` Pallas kernel
     (interpret mode, with its overflow fallback) and spi_tpu's XLA
     autodiff, for coarse, fine, overflowing and border/outside points."""
-    coords = _coords(case)
-    geom = _geom(case == "fine")
+    got = _port_plane_grad(planes, _coords(case), cotangent)
+    np.testing.assert_allclose(got, _jax_plane_grad(case, "windowed"), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, _jax_plane_grad(case, "xla"), rtol=1e-4, atol=1e-5)
+
+
+def _port_geom(geom):
+    return psplat.RayGeom(geom.n_views, geom.rays_h, geom.rays_w, geom.n_samples, geom.fine)
+
+
+@pytest.mark.parametrize("case", SPLAT_CASES)
+def test_sample_planes_grad_with_ray_geometry(case, planes, cotangent):
+    """With the ray geometry passed, as spi_tpu's renderer passes it, the
+    port's plane gradient still matches spi_tpu's `sample_from_planes(...,
+    geom=RayGeom)`, windowed and XLA."""
+    got = _port_plane_grad(planes, _coords(case), cotangent, _port_geom(_geom(case == "fine")))
+    np.testing.assert_allclose(got, _jax_plane_grad(case, "windowed"), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, _jax_plane_grad(case, "xla"), rtol=1e-4, atol=1e-5)
+
+
+# Two views of 20 x 16 rays x 6 samples on one set of planes: 20 rays and
+# 6 samples are not multiples of the kernel's 16 x 4 x 4 tiles.
+RAGGED = dict(n_views=2, rays_h=20, rays_w=16, n_samples=6)
+
+
+def _ragged_inputs():
+    n = RAGGED["rays_h"] * RAGGED["rays_w"] * RAGGED["n_samples"]
+    rs = np.random.RandomState(47)
+    coords = rs.uniform(-0.45, 0.45, (2, n, 3)).astype(np.float32)
+    coords[1, :40] = [0.75, 0.0, 0.0]  # outside planes 0 and 1, on plane 2's edge
+    return coords, _rand(2, 3, n, C, seed=48)
+
+
+def test_two_view_ragged_batch_with_ray_geometry(planes):
+    """A two-camera batch on one set of planes, with a ray geometry whose
+    tiles are ragged, against spi_tpu with the same geometry (its windowed
+    path takes the XLA scatter for a batch)."""
+    coords, ct = _ragged_inputs()
 
     def jgrad(impl):
         def loss(p):
-            out = JR.sample_from_planes(p, jnp.asarray(coords), 1.0, geom=geom, impl=impl)
-            return jnp.sum(out * cotangent)
+            out = JR.sample_from_planes(p, jnp.asarray(coords), 1.0,
+                                        geom=jsplat.RayGeom(**RAGGED), impl=impl)
+            return jnp.sum(out * ct)
         return np.asarray(jax.grad(loss)(jnp.asarray(planes)))
 
-    tp = _t(planes, True)
-    out = PR.sample_from_planes(tp, _t(coords), 1.0)
-    (out * _t(cotangent)).sum().backward()
-    got = tp.grad.numpy()
-    np.testing.assert_allclose(got, jgrad("windowed"), rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(got, jgrad("xla"), rtol=1e-4, atol=1e-5)
+    got = _port_plane_grad(planes, coords, ct, psplat.RayGeom(**RAGGED))
+    for impl in ("windowed", "xla"):
+        np.testing.assert_allclose(got, jgrad(impl), rtol=1e-4, atol=1e-5)
+
+
+def _tiled_cases():
+    coords, ct = _ragged_inputs()
+    yield "ragged two-view", coords.reshape(1, -1, 3), ct.transpose(1, 0, 2, 3).reshape(
+        1, 3, -1, C), psplat.RayGeom(**RAGGED)
+    for case in SPLAT_CASES:
+        yield case, _coords(case), _rand(1, 3, _geom().n_points, C, seed=41), _port_geom(
+            _geom(case == "fine"))
+    yield "no geometry", _coords("coarse"), _rand(1, 3, _geom().n_points, C, seed=41), None
+
+
+@pytest.mark.parametrize("case", ["ragged two-view", *SPLAT_CASES, "no geometry"])
+def test_splat_tiled_matches_splat_plain(case):
+    """The kernel's tiling and per-tile grouping, restated in plain PyTorch
+    (`tile_points`, `splat_tiled`), give `splat_plain`'s gradient: every
+    point lies in exactly one tile, and one sum per distinct (tile, texel)
+    added into the table is the 4-corner scatter. The count of distinct
+    keys is what the kernel issues per channel group."""
+    _, coords, ct, geom = next(c for c in _tiled_cases() if c[0] == case)
+    n, m, _ = coords.shape
+    pts = psplat.tile_points(n, m, *psplat.kernel_tiling(geom, n, m))
+    live = pts[pts >= 0]
+    assert np.array_equal(np.sort(live.numpy()), np.arange(n * m))
+    got, keys = psplat.splat_tiled(_t(coords), _t(ct), 1.0, H, W, geom)
+    want = psplat.splat_plain(_t(coords), _t(ct), 1.0, H, W)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    assert 0 < keys <= 3 * 4 * n * m
+
+
+def test_ray_geometry_must_describe_the_points(planes):
+    with pytest.raises(ValueError, match="geometry"):
+        PR.sample_from_planes(_t(planes), _t(_coords("coarse")), 1.0,
+                              psplat.RayGeom(1, 16, 16, 11))
+
+
+def test_renderer_passes_ray_geometry():
+    """A render hands sample_from_planes the geometry of each pass: the
+    scanline width from the resolution, the samples of the pass, and
+    whether it is the importance pass."""
+    from spi_tpu_torch.models import TriPlaneGenerator, tiny_test_config
+    from spi_tpu_torch.utils import camera as cam
+
+    g = TriPlaneGenerator(tiny_test_config(), device="cpu", seed=0)
+    seen = []
+    orig = PR.sample_from_planes
+
+    def spy(planes, coordinates, box_warp, geom=None):
+        seen.append((tuple(coordinates.shape), geom))
+        return orig(planes, coordinates, box_warp, geom)
+
+    PR.sample_from_planes = spy
+    try:
+        with torch.no_grad():
+            ws = torch.zeros(1, g.num_ws, g.w_dim)
+            g.synthesis(ws, cam.canonical_camera(), generator=torch.Generator().manual_seed(0))
+    finally:
+        PR.sample_from_planes = orig
+    res = g.cfg.neural_rendering_resolution
+    s, i = g.cfg.rendering.depth_resolution, g.cfg.rendering.depth_resolution_importance
+    assert seen == [((1, res * res * s, 3), psplat.RayGeom(1, res, res, s, False)),
+                    ((1, res * res * i, 3), psplat.RayGeom(1, res, res, i, True))]
 
 
 def test_sample_planes_forward_matches(planes):

@@ -25,7 +25,13 @@ import jax.numpy as jnp
 
 from spi_tpu_torch.ops import gather_scatter as gs
 from spi_tpu_torch.ops import win_scatter as ws
-from spi_tpu_torch.tools import probe_scatter, probe_winscatter, profile_gather
+from spi_tpu_torch.tools import (
+    probe_scatter,
+    probe_winscatter,
+    profile_gather,
+    splat_tiles,
+    timing,
+)
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tools"))
 import probe_winscatter_r5 as jwin  # noqa: E402  (imports bench_util from tools/)
@@ -46,6 +52,17 @@ class TestRowGather:
             idx = rs.randint(0, 64, (100, 8)).astype(np.int32)
         want = jnp.take_along_axis(jnp.asarray(tab), jnp.asarray(idx), axis=0)
         got = gs.row_gather(_t(tab), _t(idx))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    def test_per_element_indices_at_32_columns(self):
+        """The probe's width with an index per element, none broadcast: the
+        form in which the kernel makes four scalar loads."""
+        rs = np.random.RandomState(2)
+        tab = rs.randn(300, 32).astype(np.float32)
+        idx = rs.randint(0, 300, (257, 32)).astype(np.int32)
+        assert (idx != idx[:, :1]).any(axis=1).all()
+        want = jnp.take_along_axis(jnp.asarray(tab), jnp.asarray(idx), axis=0)
+        got = gs.row_gather_plain(_t(tab), _t(idx))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
     def test_cuda_wrapper_rejects_cpu_tensors(self):
@@ -142,3 +159,32 @@ def test_tool_runs_on_cpu(tool):
     assert res["device"] == "cpu"
     assert all(np.isfinite(v) and v >= 0 for v in res["times"].values()
                if not isinstance(v, dict))
+
+
+@pytest.mark.parametrize("timer", ["device_ms", "enqueue_us"])
+def test_device_timers_raise_on_cpu(timer):
+    """Device-only timing has no host-clock fallback."""
+    calls = []
+    with pytest.raises(ValueError, match="CUDA device"):
+        getattr(timing, timer)(lambda: calls.append(1), device="cpu")
+    assert not calls
+
+
+def test_splat_tiles_points_on_cpu():
+    """The splat_tiles tool's passes at a tiny size: the coarse pass's
+    points, and the fine and two-camera points a render hands
+    sample_from_planes, each with the ray geometry that describes them."""
+    from spi_tpu_torch.models import TriPlaneGenerator, tiny_test_config
+    from spi_tpu_torch.ops.plane_splat import RayGeom
+    from spi_tpu_torch.utils import camera as cam
+
+    coarse = splat_tiles.coarse_pass_points("cpu", res=8, samples=6)
+    assert coarse.shape == (1, 8 * 8 * 6, 3) and bool(torch.isfinite(coarse).all())
+    g = TriPlaneGenerator(tiny_test_config(), device="cpu", seed=0)
+    passes = splat_tiles.render_points("cpu", (g, None, None, cam.canonical_camera()))
+    res, s = g.cfg.neural_rendering_resolution, g.cfg.rendering.depth_resolution
+    fine, fine_geom = passes["fine"]
+    two, two_geom = passes["two-camera"]
+    assert fine_geom == RayGeom(1, res, res, g.cfg.rendering.depth_resolution_importance, True)
+    assert two_geom == RayGeom(2, res, res, s, False)
+    assert fine.shape == (1, fine_geom.n_points, 3) and two.shape == (1, two_geom.n_points, 3)
