@@ -4,14 +4,15 @@
     python3 chip_smoke.py [--parent build/<dir> ...]
 
 Phases (any failure exits non-zero):
-  1. build the CUDA kernel library from spi_tpu_torch/csrc;
+  1. build the CUDA kernel library from spi_tpu_torch/csrc, and read its
+     atomics from the SASS (no CAS-loop shared atomic anywhere);
   2. hold each kernel against its plain PyTorch version on the card at
      the shapes its path gives it (the splat also at a fine and a
      two-camera pass of a full-width render of phase 4's model), and time
      kernel, plain version and PyTorch library yardstick, both
      back-to-back and device-only (tools/timing.py), beside the roofline
-     bound; with --parent, time each such checkout's splat kernel in
-     turns with this one on the same inputs;
+     bound; with --parent, time each such checkout's splat and
+     win_scatter kernels in turns with this one on the same inputs;
   3. tiny_test_config synthesis forward and w / noise / weight gradients:
      on the card with the kernels versus on the CPU with the plain
      versions, same weights, same injected random draws;
@@ -70,54 +71,95 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-# Run by `splat_turns` in a checkout's own directory: times that tree's
-# splat_cuda device-only on the saved inputs (argv[1]) with this tree's
-# timing module (argv[2]); a tree whose splat_cuda takes no geometry gets none.
+# Run by `turns` in a checkout's own directory: times that tree's kernel
+# argv[1] (plane_splat or win_scatter) device-only on the saved inputs
+# (argv[2]) with this tree's timing module (argv[3]); a tree whose
+# splat_cuda takes no geometry gets none.
 TURN_CODE = """
 import importlib.util, inspect, json, sys
 import torch
-from spi_tpu_torch.ops import plane_splat as ps
-spec = importlib.util.spec_from_file_location("timing", sys.argv[2])
+kernel, saved, timing_path = sys.argv[1:4]
+spec = importlib.util.spec_from_file_location("timing", timing_path)
 timing = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(timing)
-takes_geom = "geom" in inspect.signature(ps.splat_cuda).parameters
 torch.backends.cuda.matmul.allow_tf32 = False
+if kernel == "plane_splat":
+    from spi_tpu_torch.ops import plane_splat as mod
+    takes_geom = "geom" in inspect.signature(mod.splat_cuda).parameters
+    def call(coords, g, geom):
+        extra = (mod.RayGeom(*geom),) if takes_geom and geom else ()
+        return lambda: mod.splat_cuda(coords, g, 1.0, 256, 256, *extra)
+else:
+    from spi_tpu_torch.ops import win_scatter as mod
+    def call(offsets, fyx, gft, geom):
+        return lambda: mod.win_scatter_cuda(offsets, fyx, gft, *geom)
 ms = {}
-for label, (coords, g, geom) in torch.load(sys.argv[1]).items():
-    coords, g = coords.cuda(), g.cuda()
-    extra = (ps.RayGeom(*geom),) if takes_geom and geom else ()
-    ms[label] = timing.device_ms(lambda: ps.splat_cuda(coords, g, 1.0, 256, 256, *extra))
-print(json.dumps({"tree": ps.__file__, "ms": ms}))
+for label, args in torch.load(sys.argv[2]).items():
+    args = [a.cuda() if torch.is_tensor(a) else a for a in args]
+    ms[label] = timing.device_ms(call(*args))
+print(json.dumps({"tree": mod.__file__, "ms": ms}))
 """
 
 
-def splat_turns(parent, inputs):
-    """Device-only splat times of the parent checkout `parent` and of this
-    one on the same card, in turns (parent, this, this, parent), each in a
-    process of its own run from its tree. `inputs`: {label: (coords, g,
-    geom)} on the card."""
-    import dataclasses
+def turns(parent, kernel, inputs):
+    """Device-only times of `kernel`'s wrapper in the parent checkout
+    `parent` and in this one on the same card, in turns (parent, this,
+    this, parent), each in a process of its own run from its tree.
+    `inputs`: {label: the wrapper's tensor and shape arguments}, saved
+    to the CPU and reloaded on the card by each turn."""
     import os
     from pathlib import Path
 
     import torch
 
     here = Path(__file__).resolve().parent
-    saved = here / "build" / "splat_turns.pt"
+    saved = here / "build" / f"{kernel}_turns.pt"
     saved.parent.mkdir(exist_ok=True)
-    torch.save({k: (c.cpu(), g.cpu(), dataclasses.astuple(geom) if geom else None)
-                for k, (c, g, geom) in inputs.items()}, saved)
+    torch.save({k: tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+                for k, args in inputs.items()}, saved)
     timing = here / "spi_tpu_torch" / "tools" / "timing.py"
     runs = []
     for tree in (Path(parent).resolve(), here, here, Path(parent).resolve()):
         env = dict(os.environ, PYTHONPATH=str(tree))
-        proc = subprocess.run([sys.executable, "-c", TURN_CODE, str(saved), str(timing)],
+        proc = subprocess.run([sys.executable, "-c", TURN_CODE, kernel, str(saved), str(timing)],
                               cwd=tree, env=env, capture_output=True, text=True, timeout=600)
-        check(proc.returncode == 0, f"splat turn in {tree} failed:\n{proc.stderr[-3000:]}")
+        check(proc.returncode == 0, f"{kernel} turn in {tree} failed:\n{proc.stderr[-3000:]}")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        log(f"splat turn {'parent' if tree != here else 'this tree'} ({runs[-1]['tree']}): "
+        log(f"{kernel} turn {'parent' if tree != here else 'this tree'} ({runs[-1]['tree']}): "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in runs[-1]["ms"].items()))
+    saved.unlink()
     return runs
+
+
+def sass_atomics(path):
+    """{kernel function: {atomic or reduction opcode: count}} in the SASS of
+    the built library (cuobjdump -sass). Fails if any shared-memory atomic
+    is a compare-and-swap loop (ATOMS.CAST.SPIN, what an f32 atomicAdd to
+    shared memory compiles to) or if a win_scatter kernel adds to global
+    memory other than by REDG."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+            continue
+        m = re.search(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[\w.]+)", line)
+        if m and func:
+            ops = counts.setdefault(func, {})
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    for func, ops in counts.items():
+        log(f"sass {func}: {ops}")
+        check(not any("CAST.SPIN" in op for op in ops), f"{func} has a CAS-loop shared atomic")
+        if "win_scatter" in func:
+            check(all(op.startswith(("REDG", "ATOMS.ADD")) for op in ops),
+                  f"{func} adds other than by REDG and integer ATOMS.ADD: {ops}")
+    return counts
 
 
 def phase_splat(dev, model, parents=()):
@@ -130,6 +172,8 @@ def phase_splat(dev, model, parents=()):
     channel groups, counted in plain PyTorch), device-only and back-to-back
     times, and the bound. Each parent checkout's kernel is timed in turns
     with this one."""
+    import dataclasses
+
     import torch
 
     from spi_tpu_torch.ops import plane_splat as ps
@@ -167,7 +211,7 @@ def phase_splat(dev, model, parents=()):
             f"({b_by}, {nbytes / 1e6:.1f} MB)")
         check(err <= TOL_SPLAT, f"splat kernel disagrees with its plain version at {label}")
         if label != "border":
-            inputs[label] = (coords, g, geom)
+            inputs[label] = (coords, g, dataclasses.astuple(geom) if geom else None)
         if row is None:  # the table's row: the coarse pass
             host = enqueue_us(lambda: ps.splat_cuda(coords, g, 1.0, h, w, geom))
             plain = time_ms(lambda: ps.splat_plain(coords, g, 1.0, h, w), iters=5)
@@ -190,7 +234,7 @@ def phase_splat(dev, model, parents=()):
                    "library_ms": lib_ms, "library_device_ms": lib_d, "reductions": reductions}
             del grids, inp, g_nchw
     for parent in parents:
-        splat_turns(parent, inputs)
+        turns(parent, "plane_splat", inputs)
     return {"name": "plane_splat", "route": "cuda", "source": "spi_tpu_torch/csrc/plane_splat.cu",
             "replaces": "spi_tpu/ops/plane_splat.py:113", **row}
 
@@ -293,49 +337,94 @@ def phase_bias_act(dev):
     return out
 
 
-def phase_win_scatter(dev):
+def phase_win_scatter(dev, parents=()):
     """Row 4: the windowed splat at the probe's shapes (384 tiles of 2048
     points, C = 32, into 256 x 256 x 32), K1 64x64 and 64x32 windows and
-    K2 256x48 strips, in f32 and bf16."""
+    K2 256x48 strips, in f32 and bf16. Per shape: the error against the
+    plain version, the float4 reductions the kernel issues (nonzero bins,
+    counted by win_scatter_binned), device-only and back-to-back times,
+    the bound, and the bins' precomputed sums added onto the same table
+    cells by row_scatter_add (rows of 32 channels, 8 lanes a cell). Then
+    edge cases, each in f32 and bf16: a crowded window, every other tile
+    dead, windows overhanging the table, and ragged tiles (2,500 points,
+    12 channels). Each parent checkout's kernel is timed in turns with
+    this one at the six probe shapes. The reductions alone, without the
+    sums' bytes, and a block's time by phase: tools/winscatter_pace.py."""
     import torch
 
-    from spi_tpu_torch.ops.win_scatter import win_scatter_cuda, win_scatter_plain
-    from spi_tpu_torch.tools.timing import device_ms
+    from spi_tpu_torch.ops.gather_scatter import row_scatter_add_cuda
+    from spi_tpu_torch.ops.win_scatter import (
+        win_scatter_binned,
+        win_scatter_bins,
+        win_scatter_cuda,
+        win_scatter_plain,
+    )
     from spi_tpu_torch.tools.probe_winscatter import C, H, N_TILES, TILE_P, W, WINDOWS, make_inputs
+    from spi_tpu_torch.tools.timing import device_ms
 
-    worst, row = 0.0, None
+    def compare(label, args, geom):
+        got = win_scatter_cuda(*args, *geom)
+        want = win_scatter_plain(*args, *geom)
+        torch.cuda.synchronize()
+        err, max_abs = rel_err(got, want), float((got - want).abs().max())
+        check(err <= TOL_SCATTER, f"win_scatter {label} disagrees with its plain version: {err:.3e}")
+        return err, max_abs
+
+    worst, row, inputs = 0.0, None, {}
     for dtype in (torch.float32, torch.bfloat16):
+        dt = "f32" if dtype == torch.float32 else "bf16"
         for name, win_h, win_w, spread in WINDOWS:
             args = make_inputs(N_TILES, win_h, win_w, spread if win_h != H else H - 2, spread,
                                dtype, device=dev, seed=4)
             geom = (win_h, win_w, H, W)
-            got = win_scatter_cuda(*args, *geom)
-            want = win_scatter_plain(*args, *geom)
-            torch.cuda.synchronize()
-            err = rel_err(got, want)
-            max_abs = float((got - want).abs().max())
+            label = f"{name} {dt}"
+            err, max_abs = compare(label, args, geom)
             worst = max(worst, max_abs)
+            reductions = win_scatter_binned(*args, *geom)[1]
+            cells, sums = win_scatter_bins(*args, *geom)
+            rows = cells.int()
+            flush = device_ms(lambda: row_scatter_add_cuda(rows, sums, H * W))
+            del cells, sums, rows
+            dms = device_ms(lambda: win_scatter_cuda(*args, *geom))
             ms = time_ms(lambda: win_scatter_cuda(*args, *geom))
-            plain = time_ms(lambda: win_scatter_plain(*args, *geom), iters=3)
             # Bytes: the cotangents, the two coordinate rows of fyx that
             # are read, the offsets and the table; 12 operations a corner
             # and channel pair (hat weights and products) are far below.
             nbytes = (args[2].numel() * args[2].element_size() + 2 * N_TILES * TILE_P * 4
                       + args[0].numel() * 4 + H * W * C * 4)
             b_ms, b_by = bound_ms(nbytes, 12 * N_TILES * TILE_P * C)
-            dt = "f32" if dtype == torch.float32 else "bf16"
-            log(f"win_scatter {name} {dt}: max abs err {max_abs:.3e}, rel {err:.3e} "
-                f"(tol {TOL_SCATTER}); kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
-            check(err <= TOL_SCATTER, f"win_scatter {name} {dt} disagrees with its plain version")
+            log(f"win_scatter {label}: max abs err {max_abs:.3e}, rel {err:.3e} (tol {TOL_SCATTER}); "
+                f"{reductions} reductions; device-only {dms:.4f} ms, back-to-back {ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB); the precomputed sums "
+                f"added by row_scatter_add {flush:.4f} ms")
+            inputs[label] = (*args, geom)
             if row is None:  # the table's row: K1 64x64 in f32
-                dms = device_ms(lambda: win_scatter_cuda(*args, *geom))
+                plain = time_ms(lambda: win_scatter_plain(*args, *geom), iters=3)
                 plain_d = device_ms(lambda: win_scatter_plain(*args, *geom), iters=3)
-                log(f"win_scatter {name} {dt}: device-only kernel {dms:.4f} ms, plain "
-                    f"{plain_d:.4f} ms")
+                log(f"win_scatter {label}: plain {plain:.4f} ms back-to-back, {plain_d:.4f} ms "
+                    "device-only")
                 row = {"ms": ms, "device_ms": dms, "plain_ms": plain, "plain_device_ms": plain_d,
-                       "bound_ms": b_ms, "bound_by": b_by}
-            del args, got, want
+                       "bound_ms": b_ms, "bound_by": b_by, "reductions": reductions,
+                       "flush_device_ms": flush}
+            del args
+        gen = torch.Generator(device=dev).manual_seed(5)
+        for case in ("crowded", "dead", "overhang", "ragged"):
+            c, p = (12, 2500) if case == "ragged" else (C, TILE_P)
+            offsets, fyx, g = make_inputs(64, 64, 64, 56, 56, dtype, tile_p=p, device=dev, seed=6,
+                                          c=c)
+            if case == "crowded":  # some 170 corners a cell
+                fyx[:, :2] = torch.rand(64, 2, p, device=dev, generator=gen) * 6.0 + 20.0
+            elif case == "dead":
+                fyx[::2, :2] = -10.0
+            elif case == "overhang":  # past the last row and column, and before the first
+                offsets[::2] = torch.tensor([224, 232], dtype=torch.int32, device=dev)
+                offsets[1::2] = torch.tensor([-40, -24], dtype=torch.int32, device=dev)
+            err, max_abs = compare(f"{case} {dt}", (offsets, fyx, g), (64, 64, H, W))
+            worst = max(worst, max_abs)
+            log(f"win_scatter {case} {dt} (64 tiles of {p} points, C = {c}, 64x64 windows): "
+                f"max abs err {max_abs:.3e}, rel {err:.3e} (tol {TOL_SCATTER})")
+    for parent in parents:
+        turns(parent, "win_scatter", inputs)
     return {"name": "win_scatter", "route": "cuda", "source": "spi_tpu_torch/csrc/win_scatter.cu",
             "replaces": "tools/probe_winscatter_r5.py:50", "max_abs_err": worst, **row,
             "library_ms": None, "library_device_ms": None}
@@ -712,8 +801,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", action="append", default=[],
-                    help="another checkout (e.g. a git archive under build/) whose splat kernel "
-                    "phase 2 times in turns with this one; may be given more than once")
+                    help="another checkout (e.g. a git archive under build/) whose splat and "
+                    "win_scatter kernels phase 2 times in turns with this one; may be given "
+                    "more than once")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -734,9 +824,11 @@ def main(argv=None) -> int:
 
     path = phase(1, "build", lambda: (_lib.build(verbose=True), _lib.lib())[0])
     log(f"phase 1: built {path.name}")
+    sass_atomics(path)
     model = build_model(dev)
     kernels = phase(2, "kernels vs plain", lambda: [
-        phase_splat(dev, model, args.parent), *phase_bias_act(dev), phase_win_scatter(dev),
+        phase_splat(dev, model, args.parent), *phase_bias_act(dev),
+        phase_win_scatter(dev, args.parent),
         phase_row_gather(dev), phase_row_scatter_add(dev)])
     phase(3, "tiny synthesis card vs CPU", phase_tiny_synthesis, dev)
     pivot, launches, sg_s = phase(4, "sg projection", phase_project, dev, model)

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "spi_plane_splat": [_P, _P, _P, *[_I] * 11, _F, _P],
     "spi_bias_act_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     "spi_bias_act_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
-    "spi_win_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "spi_win_scatter": [_P, _P, _P, _P, *[_I] * 10, _P],
     "spi_row_gather": [_P, _P, _P, _I, _I, _I, _P],
     "spi_row_scatter_add": [_P, _P, _P, _I, _I, _I, _P],
 }

@@ -18,13 +18,20 @@ On a CUDA tensor `win_scatter` launches the kernel of
 `csrc/win_scatter.cu`; on a CPU tensor it runs `win_scatter_plain`,
 four masked `index_add_` calls. bfloat16 cotangents round as the Pallas
 kernel does: the hat weights and hx * g to bfloat16, the sum in float32.
+`win_scatter_binned` restates the kernel's algorithm in plain PyTorch and
+counts the float4 reductions the kernel issues.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from spi_tpu_torch.ops import _lib
+
+POINT_CHUNK = 2048  # points the kernel bins at a time (kPoints in csrc/win_scatter.cu)
+MAX_CELLS = 15872   # window cells the kernel takes (kMaxCells)
 
 
 def _round_bf16(x):
@@ -78,12 +85,62 @@ def win_scatter_plain(offsets, fyx, gft, win_h: int, win_w: int, out_h: int, out
     return out.reshape(out_h, out_w * c)
 
 
+def win_scatter_bins(offsets, fyx, gft, win_h: int, win_w: int, out_h: int, out_w: int):
+    """The bins of the kernel's algorithm, in plain PyTorch: each corner
+    inside its window and the table, with a nonzero hat weight on both axes
+    (the kernel skips the others), binned by (tile, chunk of POINT_CHUNK
+    points, table cell), and one float32 sum per nonzero bin. Returns each
+    bin's table cell (row of the (out_h * out_w, C) table) and its (C,) sum.
+    The corners are expanded here on their own, all four at once, apart
+    from `win_scatter_plain`, which stays the independent reference."""
+    _check(offsets, fyx, gft, win_h, win_w, out_h, out_w)
+    t, _, p = fyx.shape
+    cells = out_h * out_w
+    dev = gft.device
+    fy, fx = fyx[:, 0].float(), fyx[:, 1].float()  # (T, P)
+    corner = torch.arange(4, device=dev)[:, None, None]
+    y = fy.floor() + corner // 2  # (4, T, P): corners (0, 0), (0, 1), (1, 0), (1, 1)
+    x = fx.floor() + corner % 2
+    hy = (1.0 - (y - fy).abs()).clamp_min(0.0)
+    hx = (1.0 - (x - fx).abs()).clamp_min(0.0)
+    ty = y + (offsets[:, 0, None] if win_h != out_h else 0)  # table row and column
+    tx = x + offsets[:, 1, None]
+    live = ((y >= 0) & (y < win_h) & (x >= 0) & (x < win_w) & (ty >= 0) & (ty < out_h)
+            & (tx >= 0) & (tx < out_w) & (hy > 0) & (hx > 0))
+    q, tile, point = live.nonzero(as_tuple=True)
+    g = gft[tile, :, point].float()  # (N, C): each live corner's cotangents
+    wy, wx = hy[q, tile, point, None], hx[q, tile, point, None]
+    if gft.dtype == torch.bfloat16:  # hy_bf16 * bf16(bf16(hx) * g), as the MXU rounds
+        wy = wy.to(torch.bfloat16).float()
+        v = wy * (wx.to(torch.bfloat16).float() * g).to(torch.bfloat16).float()
+    else:
+        v = wy * (wx * g)
+    chunk = tile * math.ceil(p / POINT_CHUNK) + point // POINT_CHUNK
+    key = chunk * cells + ty[q, tile, point].long() * out_w + tx[q, tile, point].long()
+    uniq, inv = torch.unique(key, return_inverse=True)
+    sums = torch.zeros(uniq.numel(), gft.shape[1], dtype=torch.float32, device=dev)
+    sums.index_add_(0, inv, v)
+    return uniq % cells, sums
+
+
+def win_scatter_binned(offsets, fyx, gft, win_h: int, win_w: int, out_h: int, out_w: int):
+    """The kernel's algorithm in plain PyTorch: each bin's sum
+    (`win_scatter_bins`) added into the table. Returns the same table as
+    `win_scatter_plain` and the number of float4 reductions the kernel
+    issues: nonzero bins x C / 4."""
+    cells, sums = win_scatter_bins(offsets, fyx, gft, win_h, win_w, out_h, out_w)
+    c = gft.shape[1]
+    out = torch.zeros(out_h * out_w, c, dtype=torch.float32, device=gft.device)
+    out.index_add_(0, cells, sums)
+    return out.reshape(out_h, out_w * c), cells.numel() * (c // 4)
+
+
 def win_scatter_cuda(offsets, fyx, gft, win_h: int, win_w: int, out_h: int, out_w: int):
     """Launch the kernel: same function as `win_scatter_plain`.
 
     offsets (T, 2) int32; fyx (T, R >= 2, P) float32; gft (T, C, P)
     float32 or bfloat16, C a multiple of 4; all contiguous on one CUDA
-    device.
+    device; a window of at most MAX_CELLS cells.
     """
     _check(offsets, fyx, gft, win_h, win_w, out_h, out_w)
     _lib.require(offsets, "offsets", dtype=torch.int32, ndim=2)
@@ -95,8 +152,9 @@ def win_scatter_cuda(offsets, fyx, gft, win_h: int, win_w: int, out_h: int, out_
         raise ValueError(f"win_scatter kernel takes C a multiple of 4, got {c}")
     if t * rows * p >= 2**31 or t * c * p >= 2**31 or out_h * out_w * c >= 2**31:
         raise ValueError("win_scatter kernel takes fewer than 2^31 elements per tensor")
-    if win_h * win_w * 4 * 4 > 232448:
-        raise ValueError(f"a {win_h}x{win_w} window of 4 channels does not fit shared memory")
+    if win_h * win_w > MAX_CELLS:
+        raise ValueError(f"win_scatter kernel takes at most {MAX_CELLS} window cells, "
+                         f"got {win_h}x{win_w}")
     out = torch.empty(out_h, out_w * c, dtype=torch.float32, device=gft.device)
     err = _lib.lib().spi_win_scatter(
         offsets.data_ptr(), fyx.data_ptr(), gft.data_ptr(), out.data_ptr(), t, rows, p, c,

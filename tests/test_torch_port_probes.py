@@ -12,6 +12,10 @@ spi_tpu's Pallas probes, on the CPU, and the probe tools at a tiny size.
   hat weights and hx * g to bfloat16 where the Pallas kernel does and
   only the order of the float32 sums differs (1.3e-7 at most on these
   inputs).
+- win_scatter_binned (the kernel's algorithm: bins by window cell, one
+  sum a bin) against win_scatter_plain and the Pallas probe on K1, K2, a
+  crowded window, a dead tile and windows overhanging the table, with its
+  count of float4 reductions against the nonzero bins counted in numpy.
 """
 
 import os
@@ -31,6 +35,7 @@ from spi_tpu_torch.tools import (
     profile_gather,
     splat_tiles,
     timing,
+    winscatter_pace,
 )
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tools"))
@@ -132,6 +137,100 @@ def test_win_scatter_matches_pallas(k1, dtype):
     assert not tab[~covered].any() and tab[covered].any()
 
 
+def _binned_case(case, dtype):
+    """`_win_inputs`' K1 and K2 inputs, and three K1 variants: `crowded`
+    (every point of both tiles within a 4 x 4 patch of cells, some 64
+    corners a cell, as 64x32 windows crowd them), `dead` (the first tile's
+    points all dead) and `overhang` (windows that leave the table past its
+    last row and column, and before its first)."""
+    offsets, fyx, gft, geom = _win_inputs(case != "K2", dtype)
+    if case == "crowded":
+        rs = np.random.RandomState(7)
+        fyx[:, :2] = rs.uniform(5.0, 7.9, fyx[:, :2].shape)
+    elif case == "dead":
+        fyx[0, :2] = -10.0
+    elif case == "overhang":
+        offsets = np.array([[40, 40], [-8, -12]], np.int32)
+    return offsets, fyx, gft, geom
+
+
+def _nonzero_bins(offsets, fyx, geom):
+    """Distinct (tile, window cell) pairs that a corner of nonzero hat
+    weight reaches inside both the window and the table, counted in numpy."""
+    bins = set()
+    for t in range(fyx.shape[0]):
+        oy = offsets[t, 0] if geom["win_h"] != geom["out_h"] else 0
+        for fy, fx in zip(fyx[t, 0], fyx[t, 1]):
+            for y in (np.floor(fy), np.floor(fy) + 1):
+                for x in (np.floor(fx), np.floor(fx) + 1):
+                    inside = (0 <= y < geom["win_h"] and 0 <= x < geom["win_w"]
+                              and 0 <= oy + y < geom["out_h"]
+                              and 0 <= offsets[t, 1] + x < geom["out_w"])
+                    weight = (np.float32(1) - np.abs(np.float32(y) - fy) > 0
+                              and np.float32(1) - np.abs(np.float32(x) - fx) > 0)
+                    if inside and weight:
+                        bins.add((t, int(y), int(x)))
+    return len(bins)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["K1", "K2", "crowded", "dead", "overhang"])
+def test_win_scatter_binned(case, dtype):
+    """The kernel's algorithm restated (bins by cell, one sum a bin) gives
+    the plain version's table and, where every window lies in the table,
+    the Pallas probe's (interpret mode), each within 1e-5 of the largest
+    entry; it counts one float4 reduction per nonzero (tile, cell) and
+    4-channel group."""
+    offsets, fyx, gft, geom = _binned_case(case, dtype)
+    c = geom.pop("c")
+    tg = _t(gft) if dtype == "f32" else torch.from_numpy(gft.astype(np.float32)).bfloat16()
+    args = (_t(offsets), _t(fyx), tg, *geom.values())
+    got, reductions = ws.win_scatter_binned(*args)
+    plain = ws.win_scatter_plain(*args).numpy()
+    scale = float(np.abs(plain).max())
+    assert scale > 0
+    np.testing.assert_allclose(got.numpy(), plain, rtol=0, atol=1e-5 * scale)
+    if case != "overhang":  # the probe takes windows inside the table only
+        want = np.asarray(jwin.win_scatter(jnp.asarray(offsets), jnp.asarray(fyx),
+                                           jnp.asarray(gft), c=c, ps=128, interpret=True,
+                                           **geom))
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * scale)
+    assert reductions == _nonzero_bins(offsets, fyx, geom) * (c // 4)
+    if case == "dead":  # the dead tile's window holds only the live tile's adds
+        assert reductions == _nonzero_bins(offsets[1:], fyx[1:], geom) * (c // 4)
+
+
+def test_win_scatter_binned_chunks():
+    """Tiles longer than the kernel's chunk (POINT_CHUNK points) are binned
+    a chunk at a time, each chunk reducing on its own: the plain version's
+    table, and one reduction per nonzero bin of each chunk."""
+    rs = np.random.RandomState(8)
+    t, p, c = 2, ws.POINT_CHUNK + 452, 4
+    geom = dict(win_h=16, win_w=16, out_h=48, out_w=48)
+    offsets = np.array([[8, 16], [30, 0]], np.int32)
+    fyx = rs.uniform(-1.5, 16.5, (t, 2, p)).astype(np.float32)
+    gft = rs.randn(t, c, p).astype(np.float32)
+    args = (_t(offsets), _t(fyx), _t(gft), *geom.values())
+    got, reductions = ws.win_scatter_binned(*args)
+    plain = ws.win_scatter_plain(*args).numpy()
+    np.testing.assert_allclose(got.numpy(), plain, rtol=0, atol=1e-5 * float(np.abs(plain).max()))
+    chunks = (fyx[:, :, :ws.POINT_CHUNK], fyx[:, :, ws.POINT_CHUNK:])
+    assert reductions == sum(_nonzero_bins(offsets, f, geom) for f in chunks) * (c // 4)
+    assert reductions > _nonzero_bins(offsets, fyx, geom) * (c // 4)
+
+
+@pytest.mark.parametrize("python_name,cuda_name", [("POINT_CHUNK", "kPoints"),
+                                                   ("MAX_CELLS", "kMaxCells")])
+def test_win_scatter_constants_match_the_kernel(python_name, cuda_name):
+    """The chunk and the window limit the wrapper and `win_scatter_bins`
+    assume are the kernel's own."""
+    import re
+
+    src = (ws._lib.CSRC / "win_scatter.cu").read_text()
+    found = re.findall(rf"constexpr int {cuda_name} = (\d+);", src)
+    assert found == [str(getattr(ws, python_name))]
+
+
 def test_win_scatter_cuda_rejects_cpu_tensors():
     offsets, fyx, gft, geom = _win_inputs(True, "f32")
     geom.pop("c")
@@ -159,6 +258,11 @@ def test_tool_runs_on_cpu(tool):
     assert res["device"] == "cpu"
     assert all(np.isfinite(v) and v >= 0 for v in res["times"].values()
                if not isinstance(v, dict))
+
+
+def test_winscatter_pace_needs_a_card():
+    with pytest.raises(ValueError, match="CUDA device"):
+        winscatter_pace.run("cpu")
 
 
 @pytest.mark.parametrize("timer", ["device_ms", "enqueue_us"])
