@@ -23,11 +23,21 @@ Phases (any failure exits non-zero):
   6. stage-1 'mir' projection at full width from a yawed camera (two
      cameras rendered from one set of planes);
   7. stage-2 recon-only tuning at full width from phase 4's w and noise;
-  8. the probe tools (spi_tpu_torch/tools), each run once.
+  8. the probe tools (spi_tpu_torch/tools), each run once;
+  9. SPI's RotBbox stage 2 at full width from phase 4's w and noise, from
+     a yawed camera with a synthetic face mask and landmarks: the
+     regularizer steps' and the reconstruction steps' times and launches,
+     and one regularizer step under torch.profiler;
+ 10. the inversion CLI end to end at full width on a synthetic identity
+     written under build/ (both stages, SPI's RotBbox weights), its output
+     tree, and a second run that reuses the first one's embedding.
+Phase 3 also holds one tiny_test_config RotBbox step (all four
+regularizers, the mirror term on) on the card against the CPU: its LPIPS
+and every weight gradient.
 
-Each path (phases 3, 4, 6, 7 and each tool) runs with the launch counts
-set to 0 just before it and fails unless each kernel it is meant to
-launch was launched. Prints the card's name and power limit, one
+Each path (phases 3, 4, 6, 7, 9, 10 and each tool) runs with the launch
+counts set to 0 just before it and fails unless each kernel it is meant
+to launch was launched. Prints the card's name and power limit, one
 `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`. TF32
 is off throughout: the port computes in float32, as the JAX reference
 does.
@@ -165,9 +175,10 @@ def sass_atomics(path):
 def phase_splat(dev, model, parents=()):
     """Row 1: the splat against its plain version at the coarse pass (the
     canonical camera's 128^2 rays x 48 stratified samples), a fine pass and
-    the 'mir' two-camera pass of a full-width render, and the coarse points
-    with an eighth moved onto two planes' edge and an eighth outside all
-    three. Per shape:
+    the 'mir' two-camera pass of a full-width render, the RotBbox rot
+    term's four-camera coarse and fine passes, the TV loss's 2,000 free
+    points (no ray geometry), and the coarse points with an eighth moved onto two
+    planes' edge and an eighth outside all three. Per shape:
     the reductions the kernel issues (distinct (tile, plane, texel) keys x
     channel groups, counted in plain PyTorch), device-only and back-to-back
     times, and the bound. Each parent checkout's kernel is timed in turns
@@ -177,7 +188,7 @@ def phase_splat(dev, model, parents=()):
     import torch
 
     from spi_tpu_torch.ops import plane_splat as ps
-    from spi_tpu_torch.tools.splat_tiles import coarse_pass_points, render_points
+    from spi_tpu_torch.tools.splat_tiles import coarse_pass_points, render_points, rotbbox_points
     from spi_tpu_torch.tools.timing import device_ms, enqueue_us
 
     h = w = 256
@@ -188,7 +199,8 @@ def phase_splat(dev, model, parents=()):
     border[0, :q] = torch.tensor([0.499, 0.0, 0.0], device=dev)  # on the edge of planes 0, 1
     border[0, q:2 * q] = torch.tensor([0.75, 0.75, 0.75], device=dev)  # outside all three
     geom = ps.RayGeom(1, 128, 128, 48)
-    shapes = {"coarse": (coarse, geom), **render_points(dev, model), "border": (border, geom)}
+    shapes = {"coarse": (coarse, geom), **render_points(dev, model),
+              **rotbbox_points(dev, model), "border": (border, geom)}
     gen = torch.Generator(device=dev).manual_seed(1)
     inputs, row = {}, None
     for label, (coords, geom) in shapes.items():
@@ -609,12 +621,88 @@ def phase_tiny_synthesis(dev):
         check(math.isfinite(v) and v <= TOL_SYNTH, f"tiny synthesis {k} disagrees: {v:.3e}")
 
 
+def tiny_rotbbox_step(device):
+    """One tiny_test_config RotBbox step on `device` with all four
+    regularizers (the camera yawed by 0.4, so the mirror term counts),
+    the same seeded weights and the same injected draws on any device.
+    Returns (the step's LPIPS, {weight: gradient on the CPU}, launches)."""
+    import torch
+
+    from spi_tpu_torch.criteria.bbox_cx import BoxCXLoss
+    from spi_tpu_torch.criteria.lpips import LPIPS
+    from spi_tpu_torch.models import TriPlaneGenerator, tiny_test_config
+    from spi_tpu_torch.models.rendering.renderer import draw_randoms
+    from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.tools.step_time import synthetic_face
+    from spi_tpu_torch.training import coaches
+    from spi_tpu_torch.utils import camera as cam
+    from spi_tpu_torch.utils.params import trainable_parameters
+
+    cfg = tiny_test_config()
+    g = TriPlaneGenerator(cfg, device=device, seed=0)
+    with torch.no_grad():  # nonzero noise strengths, so they get a gradient
+        for name, t in g.named_parameters():
+            if name.endswith("noise_strength"):
+                t.fill_(0.1)
+    lpips = LPIPS(device=device, cfg=(8, "M", 16, "M", 16), target_layers=(1, 4, 7))
+    box_cx = BoxCXLoss(device=device)
+    gen = torch.Generator().manual_seed(5)
+    m = cfg.neural_rendering_resolution ** 2
+
+    def views(shape):  # a camera sampler's (u_yaw, u_pitch) and four views' renderer draws
+        return {"cameras": (torch.rand(shape, generator=gen), torch.rand(shape, generator=gen)),
+                "render": draw_randoms(cfg.rendering, 4, m, generator=gen)}
+
+    draws = [{"recon": draw_randoms(cfg.rendering, 1, m, generator=gen),
+              "rot": views((4,)), "mirror": views((4,)), "depth": views((4, 1)),
+              "tv": {"uniform": torch.rand(1, 1000, 3, generator=gen),
+                     "perturb": torch.randn(1, 1000, 3, generator=gen),
+                     "directions": torch.randn(1, 2000, 3, generator=gen)}}]
+    target = torch.tanh(torch.randn(1, 3, 128, 128, generator=gen))
+    w = torch.randn(1, g.num_ws, g.w_dim, generator=gen) * 0.5
+    mask, lm = synthetic_face("cpu", 128)
+    settings = coaches.CoachSettings(num_steps=1, lpips_threshold=-1.0, tv_lambda=0.1)
+    out = {}
+
+    def on_step(step, lp):  # after the update, before the gradients are cleared
+        out["lpips"] = lp
+        out["grads"] = {k: p.grad.detach().cpu() for k, p in trainable_parameters(g).items()
+                        if p.grad is not None}
+
+    before = dict(_lib.launch_counts)
+    coaches.tune_generator(
+        g, lpips, coaches.CoachInputs(target, cam.canonical_camera(yaw=0.4), w, mask, lm / 2),
+        settings, draws=draws, device=device, on_step=on_step, box_cx=box_cx)
+    launched = {k: _lib.launch_counts[k] - before[k] for k in before}
+    return out["lpips"], out["grads"], launched
+
+
+def phase_tiny_rotbbox(dev):
+    """Card (kernels) vs CPU (plain versions): one tiny RotBbox step's LPIPS
+    and the gradient of every weight, to TOL_SYNTH of each one's largest
+    entry."""
+    ref_lp, ref_g, cpu_launched = tiny_rotbbox_step("cpu")
+    lp, grads, launched = tiny_rotbbox_step(dev)
+    check(not any(cpu_launched.values()), f"CPU run launched kernels: {cpu_launched}")
+    check(all(launched[k] for k in INVERSION_KERNELS), f"card run skipped a kernel: {launched}")
+    check(set(grads) == set(ref_g), "the card and the CPU give gradients to other weights")
+    errs = sorted(((rel_err(grads[k], ref_g[k]), k) for k in ref_g), reverse=True)
+    lp_err = abs(lp - ref_lp) / abs(ref_lp)
+    worst = ", ".join(f"{k} {e:.2e}" for e, k in errs[:4])
+    log(f"tiny RotBbox step card vs CPU: LPIPS {lp:.6f} vs {ref_lp:.6f} (rel {lp_err:.2e}); "
+        f"{len(errs)} weight gradients, the worst {worst} (tol {TOL_SYNTH}); launches {launched}")
+    check(lp_err <= TOL_SYNTH, f"tiny RotBbox LPIPS disagrees: {lp_err:.3e}")
+    check(all(math.isfinite(e) and e <= TOL_SYNTH for e, _ in errs),
+          f"tiny RotBbox gradient {errs[0][1]} disagrees: {errs[0][0]:.3e}")
+
+
 def drive(label, kernels, fn):
     """Run `fn(on_step)` (a workload of spi_tpu_torch/tools/step_time.py)
     with every launch count at 0 and the peak memory reset just before it;
     each step is stamped. Fails unless each of `kernels` was launched.
-    Returns (fn's result, launch counts, launches in the last step, median
-    s/step after the second)."""
+    Returns (fn's result, launch counts, each step's launches (step 0's
+    with the set-up's), each step's s after the first, median s/step after
+    the second)."""
     from spi_tpu_torch.ops import _lib
     from spi_tpu_torch.tools.step_time import steady_s, time_steps
 
@@ -624,14 +712,15 @@ def drive(label, kernels, fn):
         fn, lambda: counts.append(dict(_lib.launch_counts)))
     launches = dict(_lib.launch_counts)
     steady = steady_s(step_s)
-    per_step = {k: counts[-1][k] - counts[-2][k] for k in launches}
+    steps = [{k: c[k] - (counts[i - 1][k] if i else 0) for k in launches}
+             for i, c in enumerate(counts)]
     log(f"{label}: {len(counts)} steps, first step {first_s:.4f} s, then "
         f"{[round(t, 5) for t in step_s]} s; median after the second {steady:.5f} s/step")
     log(f"{label}: peak device memory {peak / 2**30:.3f} GiB")
-    log(f"{label}: launches {launches}; per step {per_step}")
+    log(f"{label}: launches {launches}; in the last step {steps[-1]}")
     for k in kernels:
         check(launches[k] > 0, f"kernel {k} was never launched on the {label} path")
-    return result, launches, per_step, steady
+    return result, launches, steps, step_s, steady
 
 
 def build_model(dev):
@@ -667,7 +756,7 @@ def phase_project(dev, model):
     steps after the second."""
     from spi_tpu_torch.tools.step_time import PIVOT_STEPS, projection
 
-    (w, noise, dists), launches, _, steady = drive(
+    (w, noise, dists), launches, _, _, steady = drive(
         "sg project", INVERSION_KERNELS, projection(model, "sg", PIVOT_STEPS, dev))
     check_projection(model[0], "sg project", w, noise, dists)
     return (w, noise), launches, steady
@@ -687,18 +776,18 @@ KINDS = (
 )
 
 
-def phase_profile(dev, model, steady_s):
-    """The third of three 'sg' steps under torch.profiler: device time by
-    kernel and by kind, and its share of phase 4's unprofiled step time
-    (the profiler's own overhead stretches the profiled step's wall time)."""
+def profile_step(label, fn, wait, steady_s, of_what):
+    """Run the workload `fn(on_step)` under torch.profiler and keep its step
+    number `wait` + 1 (after `wait` steps and one warm-up step): device time
+    by kernel and by kind, and its share of `steady_s`, an unprofiled step
+    time (the profiler's own overhead stretches the profiled step's wall
+    time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from spi_tpu_torch.tools.step_time import projection
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=1, warmup=1, active=1)) as prof:
-        projection(model, "sg", 3, dev, seed=9)(lambda step, dist: prof.step())
+                 schedule=schedule(wait=wait, warmup=1, active=1)) as prof:
+        fn(lambda step, value: prof.step())
     per_kernel = {}
     for evt in prof.key_averages():
         t = getattr(evt, "self_device_time_total", None)
@@ -715,13 +804,22 @@ def phase_profile(dev, model, steady_s):
         low = name.lower()
         kind = next((k for frag, k in KINDS if frag in low), "other")
         kinds[kind] = kinds.get(kind, 0.0) + t
-    log(f"profile: one 'sg' step, device time {total:.3f} ms in {len(per_kernel)} kernels")
+    log(f"profile: one {label}, device time {total:.3f} ms in {len(per_kernel)} kernels")
     for kind, t in sorted(kinds.items(), key=lambda kv: -kv[1]):
         log(f"profile kind {kind:24s} {t:10.3f} ms  {100 * t / total:5.1f}%")
     for name, (t, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:25]:
         log(f"profile kernel {t:10.3f} ms {n:6d}x  {name[:110]}")
-    log(f"profile: device busy {100 * total / (steady_s * 1e3):.1f}% of a step "
-        f"(device time over phase 4's median step time {steady_s * 1e3:.3f} ms)")
+    log(f"profile: device busy {100 * total / (steady_s * 1e3):.1f}% of a {label} (device time "
+        f"over {of_what} {steady_s * 1e3:.3f} ms)")
+
+
+def phase_profile(dev, model, steady_s):
+    """The third of three 'sg' steps under torch.profiler, against phase 4's
+    median step time."""
+    from spi_tpu_torch.tools.step_time import projection
+
+    profile_step("'sg' step", projection(model, "sg", 3, dev, seed=9), 1, steady_s,
+                 "phase 4's median step time")
 
 
 def phase_mir(dev, model, num_steps=4):
@@ -735,8 +833,9 @@ def phase_mir(dev, model, num_steps=4):
     weight = float(cam.cal_camera_weight(cam.mirror_camera(camera))[0])
     log(f"mir project: yaw {MIR_YAW}, mirror weight {weight:.5f}")
     check(weight > 0, "the mirror term has no weight at this camera")
-    (w, noise, dists), _, per_step, steady = drive(
+    (w, noise, dists), _, steps, _, steady = drive(
         "mir project", INVERSION_KERNELS, projection(model, "mir", num_steps, dev))
+    per_step = steps[-1]
     check_projection(model[0], "mir project", w, noise, dists)
     check(per_step["plane_splat"] == 2,
           f"mir: {per_step['plane_splat']} splat launches a step, not one per render pass")
@@ -754,8 +853,9 @@ def phase_tune(dev, model, pivot, num_steps=6):
 
     g = model[0]
     before = {k: p.detach().clone() for k, p in trainable_parameters(g).items()}
-    (_, (steps, last_lpips)), _, per_step, steady = drive(
+    (_, (steps, last_lpips)), _, step_launches, _, steady = drive(
         "stage-2 tune", INVERSION_KERNELS, tuning(model, pivot, num_steps, dev))
+    per_step = step_launches[-1]
     after = trainable_parameters(g)
     finite = all(bool(torch.isfinite(p).all()) for p in after.values())
     moved = sum(not torch.equal(before[k], p) for k, p in after.items())
@@ -764,6 +864,144 @@ def phase_tune(dev, model, pivot, num_steps=6):
     check(steps == num_steps and math.isfinite(last_lpips), "stage 2 stopped early or diverged")
     check(finite and moved > 0, "the tuned weights are not finite or did not move")
     return steady, per_step
+
+
+def phase_rotbbox(dev, model, pivot, num_steps=9):
+    """SPI's RotBbox stage 2 at full width from phase 4's w and noise
+    (step_time.rotbbox: rot 0.1, mirror-rot 0.05, depth 1 from the camera
+    yawed by MIR_YAW, synthetic face mask and landmarks). Steps 0, 4 and 8
+    carry the regularizers; 4 and 8 are timed apart from the
+    reconstruction-only steps after the first. A regularizer step's
+    backward splats 8 passes (recon, rot, mirror and the tuned depth
+    render, coarse and fine), a reconstruction step's 2."""
+    import statistics
+
+    import torch
+
+    from spi_tpu_torch.tools.step_time import MIR_YAW, rotbbox
+    from spi_tpu_torch.utils import camera as cam
+    from spi_tpu_torch.utils.params import trainable_parameters
+
+    weight = float(cam.cal_camera_weight(cam.canonical_camera(yaw=MIR_YAW, device=dev))[0])
+    check(weight > 0, "the mirror-rot term has no weight at this camera")
+    g = model[0]
+    before = {k: p.detach().clone() for k, p in trainable_parameters(g).items()}
+    (_, (steps, last_lpips)), _, step_launches, step_s, _ = drive(
+        "rotbbox tune", INVERSION_KERNELS, rotbbox(model, pivot, num_steps, dev))
+    after = trainable_parameters(g)
+    finite = all(bool(torch.isfinite(p).all()) for p in after.values())
+    moved = sum(not torch.equal(before[k], p) for k, p in after.items())
+    del before
+    reg = [k for k in range(2, num_steps) if k % 4 == 0]
+    rec = [k for k in range(2, num_steps) if k % 4]
+    reg_s = [step_s[k - 1] for k in reg]
+    rec_s = [step_s[k - 1] for k in rec]
+    log(f"rotbbox tune: {steps} steps, last LPIPS {last_lpips:.6f}; mirror weight "
+        f"{weight:.5f}; weights finite {finite}, {moved} of {len(after)} weight tensors moved")
+    log(f"rotbbox tune: regularizer steps {reg} {[round(t, 5) for t in reg_s]} s (median "
+        f"{statistics.median_high(reg_s):.5f}); reconstruction steps {rec} "
+        f"{[round(t, 5) for t in rec_s]} s (median {statistics.median_high(rec_s):.5f}); "
+        f"mean over steps 1-{num_steps - 1} {sum(step_s) / len(step_s):.5f} s/step")
+    log(f"rotbbox tune: launches in regularizer step {reg[0]} {step_launches[reg[0]]}, in "
+        f"reconstruction step {rec[0]} {step_launches[rec[0]]}")
+    check(steps == num_steps and math.isfinite(last_lpips), "RotBbox stopped early or diverged")
+    check(finite and moved > 0, "the tuned weights are not finite or did not move")
+    for k in reg:
+        check(step_launches[k]["plane_splat"] == 8,
+              f"rotbbox step {k}: {step_launches[k]['plane_splat']} splat launches, not 8")
+    for k in rec:
+        check(step_launches[k]["plane_splat"] == 2,
+              f"rotbbox step {k}: {step_launches[k]['plane_splat']} splat launches, not 2")
+    reg_median, rec_median = statistics.median_high(reg_s), statistics.median_high(rec_s)
+    profile_step("RotBbox regularizer step", rotbbox(model, pivot, 5, dev), 3, reg_median,
+                 "this phase's median regularizer step time")
+    return reg_median, rec_median
+
+
+def write_identity(root, name):
+    """One synthetic 512^2 identity in the dataset's layout (tools/
+    make_smoke_data.py's: crop/, c/, mask/, lm/), seen from the camera
+    yawed by MIR_YAW: a soft blob of skin tones, the ellipse face mask as
+    parsing id 1, landmarks on its ellipse at 256 scale."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from spi_tpu_torch.tools.step_time import MIR_YAW, synthetic_face
+    from spi_tpu_torch.utils import camera as cam
+
+    for sub in ("crop", "c", "mask", "lm"):
+        (root / sub / name).mkdir(parents=True, exist_ok=True)
+    yy, xx = np.mgrid[0:512, 0:512] / 511.0
+    blob = np.exp(-(((xx - 0.5) ** 2) + (yy - 0.45) ** 2) / 0.05)
+    img = np.stack([0.6 + 0.3 * blob, 0.45 + 0.25 * blob, 0.4 + 0.2 * blob], -1)
+    img = img + np.random.default_rng(0).normal(0, 0.01, img.shape)
+    Image.fromarray((img.clip(0, 1) * 255).astype(np.uint8)).save(root / "crop" / name /
+                                                                  "target.png")
+    camera = cam.canonical_camera(yaw=MIR_YAW).numpy().reshape(25)
+    np.save(root / "c" / name / "target.npy", camera)
+    mask, lm = synthetic_face(torch.device("cpu"))
+    np.save(root / "mask" / name / "target.npy", mask[0, 0].numpy().astype(np.int64))
+    np.save(root / "lm" / name / "target.npy", lm[0].numpy())
+
+
+def phase_cli(dev, first_steps=3, tune_steps=5):
+    """`python -m spi_tpu_torch.cli.run_inversion` in this process at full
+    width (random seeded weights, float32, 'mir' stage 1, RotBbox stage 2
+    with rot 0.1, mirror-rot 0.05, depth 1) on one synthetic identity
+    under build/cli_smoke: the results, the output tree, the npz keys and
+    metric_log.txt; then a second run that reads the first one's
+    embedding and tunes nothing, whose w is the cached pivot."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from spi_tpu_torch.cli import run_inversion
+    from spi_tpu_torch.ops import _lib
+
+    root = Path(__file__).resolve().parent / "build" / "cli_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    write_identity(root / "data", "synth0")
+    out = root / "out"
+    argv = ["--data_root", str(root / "data"), "--output_root", str(out), "--device", str(dev),
+            "--random_init", "--fp32", "--first_inv_type", "mir",
+            "--first_inv_steps", str(first_steps), "--G_1_type", "RotBbox",
+            "--G_1_step", str(tune_steps), "--pt_rot_lambda", "0.1",
+            "--pt_mirror_rot_lambda", "0.05", "--pt_depth_lambda", "1",
+            "--LPIPS_value_threshold", "-1"]
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = run_inversion.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.launch_counts)
+    r = results[0]
+    log(f"cli: {wall:.1f} s for one identity (stage 1 {r['stage1_s']:.2f} s, stage 2 "
+        f"{r['stage2_s']:.2f} s, {r['steps_run']} tuning steps); metrics {r['metrics']}; "
+        f"launches {launches}")
+    for k in INVERSION_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was never launched on the CLI path")
+    check(len(results) == 1 and r["steps_run"] == tune_steps, f"cli results {results}")
+    check(all(math.isfinite(v) for v in r["metrics"].values()), f"cli metrics {r['metrics']}")
+    (coach,) = os.listdir(out / "checkpoints")
+    for sub, name in (("checkpoints", "synth0.npz"), ("embedding", "synth0.npz"),
+                      ("image", "synth0.jpg"), ("image_m", "synth0.jpg")):
+        check((out / sub / coach / name).exists(), f"cli wrote no {sub}/{coach}/{name}")
+    with np.load(out / "checkpoints" / coach / "synth0.npz") as ck:
+        n_g = sum(k.startswith("G.") for k in ck.files)
+        check({"w", "c"} <= set(ck.files) and n_g > 0, "the checkpoint lacks w, c or G")
+    lines = (out / "experiments" / "metric_log.txt").read_text().splitlines()
+    check(lines[0] == f"Coach name: {coach}" and "Mode: G1_inv AVG" in lines,
+          f"metric_log.txt: {lines[:8]}")
+    with np.load(out / "embedding" / coach / "synth0.npz") as emb:
+        cached = emb["w"]
+    t0 = time.perf_counter()
+    again = run_inversion.main(argv + ["--load_embedding_coach_name", coach, "--G_1_step", "0"])
+    check(np.array_equal(np.asarray(again[0]["w"]), cached),
+          "the second run did not reuse the cached pivot")
+    log(f"cli: {coach}: checkpoint with {n_g} G.* arrays, images, embedding and metric log "
+        f"written; the second run reused the embedding in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_tools(dev):
@@ -831,13 +1069,17 @@ def main(argv=None) -> int:
         phase_win_scatter(dev, args.parent),
         phase_row_gather(dev), phase_row_scatter_add(dev)])
     phase(3, "tiny synthesis card vs CPU", phase_tiny_synthesis, dev)
+    phase(3, "tiny RotBbox step card vs CPU", phase_tiny_rotbbox, dev)
     pivot, launches, sg_s = phase(4, "sg projection", phase_project, dev, model)
     phase(5, "profile", phase_profile, dev, model, sg_s)
     mir_s = phase(6, "mir projection", phase_mir, dev, model)
     tune_s, _ = phase(7, "stage-2 tuning", phase_tune, dev, model, pivot)
     phase(8, "probe tools", phase_tools, dev)
+    reg_s, rec_s = phase(9, "RotBbox tuning", phase_rotbbox, dev, model, pivot)
+    phase(10, "inversion CLI", phase_cli, dev)
     log(f"median s/step after the second: sg {sg_s:.5f}, mir {mir_s:.5f}, "
-        f"stage-2 tune {tune_s:.5f}")
+        f"stage-2 tune {tune_s:.5f}; RotBbox regularizer steps {reg_s:.5f}, reconstruction "
+        f"steps {rec_s:.5f}")
     for k in kernels:  # launches on the inversion ('sg') path
         k["launches"] = launches[k["name"]]
     check([k["name"] for k in kernels] == list(_lib.KERNELS), "a kernel is missing from phase 2")

@@ -1,5 +1,6 @@
 """VGG feature extractors, torchvision layout (counterpart of
-spi_tpu/models/perception/vgg.py).
+spi_tpu/models/perception/vgg.py): VGG16 for LPIPS, VGG19 up to conv2_1
+(torchvision index 5) for the BoxCX loss.
 
 Parameters are named `features.{i}.weight` / `features.{i}.bias` after
 the torchvision module index, as in the JAX package's pytree.
@@ -15,6 +16,8 @@ from torch import nn
 
 VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
              512, 512, 512, "M", 512, 512, 512, "M")
+VGG19_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
+             512, 512, 512, 512, "M", 512, 512, 512, 512, "M")
 
 
 def module_list(cfg):

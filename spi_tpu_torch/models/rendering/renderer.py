@@ -30,6 +30,7 @@ __all__ = [
     "ImportanceRenderer",
     "RayGeom",
     "RenderingOptions",
+    "draw_randoms",
     "project_onto_planes",
     "sample_from_planes",
     "sample_importance",
@@ -71,6 +72,19 @@ def sample_from_planes(planes_nhwc, coordinates, box_warp: float, geom: RayGeom 
 
 def _draw_uniform(shape, device, generator):
     return torch.rand(shape, generator=generator, device=device)
+
+
+def draw_randoms(options: RenderingOptions, n: int, m: int, device=None, generator=None):
+    """One render's random numbers for `n` cameras of `m` rays each, drawn
+    from `generator`: {'stratified': (n, m, S, 1) uniforms, 'exponential':
+    (n * m, I + 1) Exp(1) draws}. Two renders handed the same dict jitter
+    alike."""
+    draws = {"stratified": _draw_uniform((n, m, options.depth_resolution, 1), device, generator)}
+    if options.depth_resolution_importance > 0:
+        draws["exponential"] = torch.empty(
+            n * m, options.depth_resolution_importance + 1, device=device).exponential_(
+            generator=generator)
+    return draws
 
 
 def sample_stratified(ray_origins, ray_start, ray_end, depth_resolution: int,
@@ -230,3 +244,10 @@ class ImportanceRenderer:
             rgb_final, depth_final, weights = march_rays(
                 colors_coarse, densities_coarse, depths_coarse, white_back=opts.white_back)
         return rgb_final, depth_final, weights.sum(dim=2)
+
+    def run_model(self, planes_nhwc, decoder: Callable, coordinates, directions):
+        """Decode the planes at arbitrary world points (N, M, 3) (EG3D
+        renderer.py:142-148): the points lie on no ray, so the splat tiles
+        them as runs of consecutive points (no RayGeom)."""
+        feats = sample_from_planes(planes_nhwc, coordinates, self.options.box_warp).mean(dim=1)
+        return decoder(feats, directions)

@@ -173,9 +173,11 @@ class TriPlaneGenerator(nn.Module):
         return {k: out[k] for k in ("image", "image_raw", "image_depth")}
 
     def synthesis_from_planes(self, planes, ws, c, neural_rendering_resolution=None,
-                              draws: dict | None = None, generator=None):
+                              draws: dict | None = None, generator=None, want_sr: bool = True):
         """Render camera batch `c` (N, 25) from precomputed planes
-        (1|N, 3, H*W, C), broadcast over the cameras."""
+        (1|N, 3, H*W, C), broadcast over the cameras. want_sr=False skips
+        the superresolution and returns only 'image_raw' and 'image_depth'
+        (the depth anchor's renders, rot_bbox_cx_coach.py:133-141)."""
         res = neural_rendering_resolution or self.cfg.neural_rendering_resolution
         n = c.shape[0]
         cam2world = c[:, :16].reshape(-1, 4, 4)
@@ -190,8 +192,19 @@ class TriPlaneGenerator(nn.Module):
         depth_image = depth_samples.permute(0, 2, 1).reshape(n, 1, res, res)
         rgb_image = feature_image[:, :3]
         out = {"image_raw": rgb_image, "image_depth": depth_image}
+        if not want_sr:
+            return out
         if ws.shape[0] != n:
             ws = ws.expand(n, *ws.shape[1:])
         out["image"] = self.superresolution(rgb_image, feature_image, ws,
                                             noise_mode=self.cfg.sr_noise_mode)
         return out
+
+    def sample_mixed(self, ws, coordinates, directions, noise_mode="const", planes=None):
+        """Colour features and density at arbitrary world points (N, M, 3)
+        with directions (N, M, 3) (EG3D triplane.py:98-102), the TV loss's
+        probe. planes: this generator's `planes_nhwc(ws)`, where the caller
+        has them; else computed. Returns (rgb (N, M, C), sigma (N, M, 1))."""
+        if planes is None:
+            planes = self.planes_nhwc(ws, noise_mode=noise_mode)
+        return self.renderer.run_model(planes, self.decoder, coordinates, directions)

@@ -1,10 +1,12 @@
 """Bilinear sampling from channels-last tables (counterpart of
-`_sample_flat` in spi_tpu/ops/grid_sample.py).
+spi_tpu/ops/grid_sample.py).
 
 Zeros padding, align_corners=False: four corner gathers from a flat
 (rows, C) table, with out-of-range corners weighted to zero. This is
-the forward of the triplane lookup; its backward is the splat kernel
-(ops/plane_splat.py).
+the forward of the triplane lookup, whose backward is the splat kernel
+(ops/plane_splat.py), and, as `grid_sample`, the sampler of the depth
+warp (utils/rotate.py). spi_tpu runs both as XLA compositions, with no
+TPU kernel behind them.
 """
 
 from __future__ import annotations
@@ -52,3 +54,17 @@ def sample_flat(table, coords, h: int, w: int):
         term = vals * wgt[..., None]
         out = term if out is None else out + term
     return out
+
+
+def grid_sample(input, grid):  # noqa: A002 - torch's argument name
+    """`F.grid_sample(mode='bilinear', padding_mode='zeros',
+    align_corners=False)` by the same corner gathers as spi_tpu's:
+    input (N, C, H, W), grid (N, Ho, Wo, 2) of (x, y) in [-1, 1] ->
+    (N, C, Ho, Wo)."""
+    n, c, h, w = input.shape
+    gn, ho, wo, two = grid.shape
+    if two != 2 or gn != n:
+        raise ValueError(f"grid {tuple(grid.shape)} does not fit input {tuple(input.shape)}")
+    table = input.permute(0, 2, 3, 1).reshape(n, h * w, c)
+    out = sample_flat(table, grid.reshape(n, ho * wo, 2), h, w)
+    return out.reshape(n, ho, wo, c).permute(0, 3, 1, 2)

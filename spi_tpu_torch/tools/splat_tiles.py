@@ -6,7 +6,9 @@ Builds ffhq512_128_config at its published widths with random seeded
 weights (tools/step_time.py's model) and takes the points that
 `sample_from_planes` receives in one render: the canonical camera's coarse
 pass (`coarse_pass_points`) and fine pass, and the 'mir' two-camera coarse
-pass (`render_points`). For each tile (rays down, rays across, samples) it
+pass (`render_points`); `rotbbox_points` gives the RotBbox regularizers'
+four-camera coarse and fine passes and the TV loss's free points, which
+chip_smoke.py phase 2 also checks. For each tile (rays down, rays across, samples) it
 prints the reductions the kernel issues (distinct (tile, plane, texel) keys
 x channel groups, counted by `splat_tiled` in plain PyTorch), the kernel's
 device-only time and its error against `splat_plain`. `chip_smoke.py`
@@ -67,6 +69,39 @@ def render_points(dev, model):
     finally:
         renderer.sample_from_planes = sample_from_planes
     return {"fine": seen[1], "two-camera": seen[2]}
+
+
+def rotbbox_points(dev, model, rot_bs=4):
+    """The points the RotBbox regularizers hand `sample_from_planes` (TV
+    at its default 1000 + 1000 points): {'four-camera' and 'four-camera
+    fine': the rot term's coarse and importance passes over `rot_bs`
+    cameras around step_time's camera (the mirror term and the tuned
+    depth render make the same two), 'tv': the TV loss's free points},
+    each ((1, P, 3) points, RayGeom or None)."""
+    from spi_tpu_torch.criteria.tv_loss import tv_loss
+    from spi_tpu_torch.models.rendering import renderer
+    from spi_tpu_torch.utils import camera as cam
+
+    g, _, _, camera = model
+    seen = []
+    sample_from_planes = renderer.sample_from_planes
+
+    def spy(planes, coordinates, box_warp, geom=None):
+        seen.append((coordinates.detach().reshape(1, -1, 3).contiguous(), geom))
+        return sample_from_planes(planes, coordinates, box_warp, geom)
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    renderer.sample_from_planes = spy
+    try:
+        with torch.no_grad():
+            ws = g.mapping(torch.randn(1, g.z_dim, device=dev, generator=gen), camera)
+            planes = g.planes_nhwc(ws)
+            cams = cam.sample_surrounding_camera(camera, rot_bs, 0.2, 0.1, generator=gen)
+            g.synthesis_from_planes(planes, ws, cams, generator=gen, want_sr=False)
+            tv_loss(g, ws, rng=gen, planes=planes)
+    finally:
+        renderer.sample_from_planes = sample_from_planes
+    return {"four-camera": seen[0], "four-camera fine": seen[1], "tv": seen[2]}
 
 
 def run(dev, tiles=DEFAULT_TILES, c=32, h=256, w=256):

@@ -1,15 +1,18 @@
 """Wall-clock seconds per inversion step at ffhq512_128_config width on the card.
 
-    python -m spi_tpu_torch.tools.step_time [--mode sg|sgw+|mir|tune] [--steps N]
+    python -m spi_tpu_torch.tools.step_time [--mode sg|sgw+|mir|tune|rotbbox] [--steps N]
     PYTHONPATH=<checkout> python spi_tpu_torch/tools/step_time.py --mode sg
 
 Builds the generator at its published widths with random seeded weights,
 LPIPS-VGG16 and a random 512^2 target, runs N steps of one stage-1
-projector mode ('mir' from a camera yawed by MIR_YAW) or of stage-2
-recon-only tuning from the pivot of PIVOT_STEPS 'sg' steps (float32, TF32
-off), and prints one line: the median s/step after the second step, every
-step's time, and the peak device memory. `chip_smoke.py` times the same
-workload through `build_model`, `projection`, `tuning` and `time_steps`.
+projector mode ('mir' from a camera yawed by MIR_YAW) or of stage 2 from
+the pivot of PIVOT_STEPS 'sg' steps (float32, TF32 off): 'tune' is
+recon-only, 'rotbbox' SPI's RotBbox request (rot 0.1, mirror-rot 0.05,
+depth 1) from the yawed camera with a synthetic face mask and
+landmarks. It prints one line: the median s/step after the second step,
+every step's time, and the peak device memory. `chip_smoke.py` times the
+same workload through `build_model`, `projection`, `tuning`, `rotbbox`
+and `time_steps`.
 Run as a file (the second form), it imports `spi_tpu_torch` from
 PYTHONPATH, so it times another checkout's package on the same card
 ('sg' only where that tree has no other mode).
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import statistics
 import time
 
@@ -27,7 +31,7 @@ import torch
 # The timed workload's seeds: weights, target, and each run's random draws.
 WEIGHT_SEED = 0
 TARGET_SEED = 7
-RUN_SEEDS = {"sg": 8, "sgw+": 8, "mir": 12, "tune": 13}
+RUN_SEEDS = {"sg": 8, "sgw+": 8, "mir": 12, "tune": 13, "rotbbox": 15}
 MIR_YAW = 0.4
 PIVOT_STEPS = 8
 
@@ -80,6 +84,41 @@ def tuning(model, pivot, steps, dev):
         on_step=on_step)
 
 
+def synthetic_face(dev, res=512):
+    """A face mask (1, 1, res, res) and 68 landmarks (1, 68, 2) at 256 scale
+    on one ellipse about the middle of the crop, the layout
+    tools/make_smoke_data.py writes: the mouth and eye boxes lie in the
+    image."""
+    yy, xx = torch.meshgrid(*(torch.arange(res, device=dev) / (res - 1),) * 2, indexing="ij")
+    mask = (((xx - 0.5) ** 2) / 0.08 + ((yy - 0.45) ** 2) / 0.12 < 1.0).float()[None, None]
+    t = torch.linspace(0, 2 * math.pi, 69, device=dev)[:68]
+    lm = torch.stack([128 + 60 * torch.cos(t), 256 * 0.45 * 1.15 + 75 * torch.sin(t)], -1)
+    return mask, lm[None]
+
+
+def rotbbox(model, pivot, steps, dev):
+    """`fn(on_step)` running `steps` steps of SPI's RotBbox stage 2 (rot
+    0.1, mirror-rot 0.05, depth 1, TV 0: run_inversion.py's request) from
+    `pivot` = (w, noise), seen from the camera yawed by MIR_YAW so that
+    the mirror term counts, with `synthetic_face`'s mask and landmarks and
+    the LPIPS threshold below any value; returns tune_generator's result."""
+    from spi_tpu_torch.criteria.bbox_cx import BoxCXLoss
+    from spi_tpu_torch.training.coaches import CoachInputs, CoachSettings, tune_generator
+    from spi_tpu_torch.utils import camera as cam
+
+    g, lpips, target, _ = model
+    w, noise = pivot
+    camera = cam.canonical_camera(yaw=MIR_YAW, device=dev)
+    mask, lm = synthetic_face(dev, g.cfg.img_resolution)
+    settings = CoachSettings(num_steps=steps, lpips_threshold=-1.0, rot_lambda=0.1,
+                             mirror_rot_lambda=0.05, depth_lambda=1.0, tv_lambda=0.0)
+    box_cx = BoxCXLoss(device=dev)
+    return lambda on_step: tune_generator(
+        g, lpips, CoachInputs(target, camera, w, mask, lm), settings, noise=noise,
+        rng=torch.Generator(device=dev).manual_seed(RUN_SEEDS["rotbbox"]), device=dev,
+        on_step=on_step, box_cx=box_cx)
+
+
 def time_steps(fn, after_stamp=None):
     """Run `fn(on_step)` with the peak memory reset just before it; each
     step is stamped after a device sync, then `after_stamp()` is called.
@@ -108,7 +147,7 @@ def steady_s(step_s):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", default="sg", choices=("sg", "sgw+", "mir", "tune"))
+    ap.add_argument("--mode", default="sg", choices=("sg", "sgw+", "mir", "tune", "rotbbox"))
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args(argv)
 
@@ -119,9 +158,9 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = build_model(dev)
-    if args.mode == "tune":
+    if args.mode in ("tune", "rotbbox"):
         w, noise, _ = time_steps(projection(model, "sg", PIVOT_STEPS, dev))[0]
-        fn = tuning(model, (w, noise), args.steps, dev)
+        fn = (tuning if args.mode == "tune" else rotbbox)(model, (w, noise), args.steps, dev)
     else:
         fn = projection(model, args.mode, args.steps, dev)
     _, _, step_s, peak = time_steps(fn)

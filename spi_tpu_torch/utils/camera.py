@@ -1,8 +1,11 @@
-"""Camera construction, mirroring and yaw weights (counterpart of
-spi_tpu/utils/camera.py).
+"""Camera construction, sampling, mirroring and yaw weights (counterpart
+of spi_tpu/utils/camera.py).
 
 Cameras are 25-vectors: flattened 4x4 cam2world + flattened 3x3
 normalized intrinsics (OpenCV convention).
+
+The samplers take their uniforms either injected (`uniforms`, so that a
+test can hand them spi_tpu's draws) or drawn from a `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -83,6 +86,59 @@ def canonical_camera(yaw: float = 0.0, pitch: float = 0.0, batch_size: int = 1, 
     return pack_camera(lookat_pose(h, v, CANONICAL_LOOKAT), default_intrinsics(device))
 
 
+def _uniforms(uniforms, shape, device, generator):
+    """The sampler's (yaw, pitch) U[0, 1) draws: `uniforms` as given, or two
+    draws of `shape` from `generator`."""
+    if uniforms is not None:
+        return [u.to(device) for u in uniforms]
+    return [torch.rand(shape, generator=generator, device=device) for _ in range(2)]
+
+
+def sample_camera(batch_size: int = 1, yaw_range: float = 0.35, pitch_range: float = 0.25,
+                  uniforms=None, generator=None, device=None):
+    """Lookat cameras jittered uniformly in yaw over [0, yaw_range) and in
+    pitch over [0, pitch_range) from the canonical view, one-sided as in
+    spi/utils/camera_utils.py:159-166. uniforms: (u_yaw, u_pitch), each
+    (batch_size, 1) in [0, 1); else drawn from `generator`."""
+    u_h, u_v = _uniforms(uniforms, (batch_size, 1), device, generator)
+    h = u_h * yaw_range + math.pi / 2
+    v = u_v * pitch_range + math.pi / 2 + CANONICAL_PITCH
+    return pack_camera(lookat_pose(h, v, CANONICAL_LOOKAT), default_intrinsics(h.device))
+
+
+def angle_to_rotation(yaw, pitch, roll):
+    """Euler angles (each (B,)) -> (B, 3, 3) rotation Y(yaw) @ X(pitch) @
+    Z(roll) (spi/utils/camera_utils.py:169-193)."""
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    cr, sr = torch.cos(roll), torch.sin(roll)
+    zero, one = torch.zeros_like(cy), torch.ones_like(cy)
+
+    def mat(rows):
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    ymat = mat([(cy, zero, sy), (zero, one, zero), (-sy, zero, cy)])
+    pmat = mat([(one, zero, zero), (zero, cp, -sp), (zero, sp, cp)])
+    rmat = mat([(cr, -sr, zero), (sr, cr, zero), (zero, zero, one)])
+    return ymat @ pmat @ rmat
+
+
+def sample_surrounding_camera(middle_camera, batch_size: int = 1, yaw_range: float = 0.1,
+                              pitch_range: float = 0.1, uniforms=None, generator=None):
+    """`batch_size` copies of `middle_camera` (1, 25) whose extrinsics are
+    turned by world rotations of uniform yaw in [-yaw_range, yaw_range)
+    and pitch in [-pitch_range, pitch_range) (spi/utils/camera_utils.py:
+    196-211). uniforms: (u_yaw, u_pitch), each (batch_size,) in [0, 1);
+    else drawn from `generator`."""
+    u_y, u_p = _uniforms(uniforms, (batch_size,), middle_camera.device, generator)
+    y = (u_y * 2 - 1) * yaw_range
+    p = (u_p * 2 - 1) * pitch_range
+    rot = angle_to_rotation(y, p, torch.zeros_like(y))
+    ext, intr = unpack_camera(middle_camera.expand(batch_size, middle_camera.shape[-1]))
+    ext = torch.cat([rot @ ext[:, :3], ext[:, 3:]], dim=1)
+    return pack_camera(ext, intr)
+
+
 def flip_yaw(pose):
     """Mirror a cam2world about the x = 0 plane
     (spi/utils/camera_utils.py:336-343)."""
@@ -127,3 +183,16 @@ def cal_camera_weight(camera):
     yaw = camera_yaw(camera).abs()
     w = (1.0 - _gauss(yaw, std=0.29) / 2.7) / 2.0
     return torch.where(yaw < 0.2, torch.zeros_like(w), w)
+
+
+def cal_camera_gauss_weight(camera):
+    """Gaussian yaw weight, the adaptive yaw range of stage 2
+    (spi/utils/camera_utils.py:368-383)."""
+    return _gauss(camera_yaw(camera), std=0.4) / 2.6
+
+
+def check_front(camera, eps: float = 0.1):
+    """True for near-frontal cameras (spi/utils/camera_utils.py:425-429)."""
+    r = unpack_camera(camera)[0][:, :3, :3]
+    sy = torch.sqrt(r[:, 0, 0] ** 2 + r[:, 1, 0] ** 2)
+    return torch.arctan2(-r[:, 2, 0], sy).abs() < eps

@@ -54,9 +54,16 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_raise_without_gpu(no_cuda):
+    from spi_tpu_torch.criteria.bbox_cx import BoxCXLoss
+    from spi_tpu_torch.criteria.id_loss import IDLoss
     from spi_tpu_torch.criteria.lpips import LPIPS
     from spi_tpu_torch.models import TriPlaneGenerator, tiny_test_config
-    from spi_tpu_torch.training.coaches import CoachInputs, pti_settings, tune_generator
+    from spi_tpu_torch.training.coaches import (
+        CoachInputs,
+        CoachSettings,
+        pti_settings,
+        tune_generator,
+    )
     from spi_tpu_torch.training.projectors import ProjectorSettings, project
     from spi_tpu_torch.utils import camera
 
@@ -70,10 +77,40 @@ def test_entry_points_raise_without_gpu(no_cuda):
         with pytest.raises(RuntimeError, match="no GPU"):
             project(g, lp, torch.zeros(1, 3, 128, 128), camera.canonical_camera(),
                     ProjectorSettings(mode=mode, num_steps=1, w_avg_samples=2))
+    for settings in (pti_settings(1), CoachSettings(num_steps=1, tv_lambda=0.1)):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            tune_generator(g, lp, CoachInputs(torch.zeros(1, 3, 128, 128),
+                                              camera.canonical_camera(),
+                                              torch.zeros(1, g.num_ws, g.w_dim)),
+                           settings, box_cx=BoxCXLoss(device="cpu"))
+    for module in (BoxCXLoss, IDLoss):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            module()
+
+
+def test_pipeline_and_cli_raise_without_gpu(no_cuda, tmp_path):
+    from spi_tpu_torch.cli import run_inversion
+    from spi_tpu_torch.models import TriPlaneGenerator, tiny_test_config
+    from spi_tpu_torch.training.pipeline import InversionPipeline, PipelineConfig
+
+    g = TriPlaneGenerator(tiny_test_config(), device="cpu")
     with pytest.raises(RuntimeError, match="no GPU"):
-        tune_generator(g, lp, CoachInputs(torch.zeros(1, 3, 128, 128), camera.canonical_camera(),
-                                          torch.zeros(1, g.num_ws, g.w_dim)),
-                       pti_settings(1))
+        InversionPipeline(g, PipelineConfig(output_root=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="no GPU"):
+        run_inversion.main(["--data_root", str(tmp_path), "--output_root", str(tmp_path),
+                            "--random_init", "--tiny", "--fp32"])
+
+
+def test_resolve_device_names_the_card(monkeypatch):
+    """`cuda` resolves to the current card's index, the device a module on
+    the card reports, so that the entry points' device checks agree."""
+    from spi_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device() == resolve_device("cuda") == torch.device("cuda", 0)
+    assert resolve_device("cuda:0") == torch.device("cuda", 0)
+    assert resolve_device("cpu") == torch.device("cpu")
 
 
 @pytest.mark.parametrize("tool", ["profile_gather", "probe_scatter", "probe_winscatter"])
@@ -87,7 +124,7 @@ def test_tools_raise_without_gpu(no_cuda, tool):
         mod.main()
 
 
-@pytest.mark.parametrize("mode", ["sg", "tune"])
+@pytest.mark.parametrize("mode", ["sg", "tune", "rotbbox"])
 def test_step_time_raises_without_gpu(no_cuda, mode):
     from spi_tpu_torch.tools import step_time
 
@@ -101,7 +138,7 @@ def test_chip_smoke_fails_without_gpu(no_cuda, capsys):
         import chip_smoke
     finally:
         sys.path.remove(str(ROOT))
-    assert chip_smoke.main() != 0
+    assert chip_smoke.main([]) != 0
     assert capsys.readouterr().out == ""
 
 

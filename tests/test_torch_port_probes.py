@@ -276,8 +276,10 @@ def test_device_timers_raise_on_cpu(timer):
 
 def test_splat_tiles_points_on_cpu():
     """The splat_tiles tool's passes at a tiny size: the coarse pass's
-    points, and the fine and two-camera points a render hands
-    sample_from_planes, each with the ray geometry that describes them."""
+    points, the fine and two-camera points a render hands
+    sample_from_planes, and the RotBbox regularizers' four-camera coarse,
+    four-camera fine and TV points, each with the ray geometry that
+    describes them (none for TV)."""
     from spi_tpu_torch.models import TriPlaneGenerator, tiny_test_config
     from spi_tpu_torch.ops.plane_splat import RayGeom
     from spi_tpu_torch.utils import camera as cam
@@ -292,3 +294,12 @@ def test_splat_tiles_points_on_cpu():
     assert fine_geom == RayGeom(1, res, res, g.cfg.rendering.depth_resolution_importance, True)
     assert two_geom == RayGeom(2, res, res, s, False)
     assert fine.shape == (1, fine_geom.n_points, 3) and two.shape == (1, two_geom.n_points, 3)
+    extra = splat_tiles.rotbbox_points("cpu", (g, None, None, cam.canonical_camera()))
+    four, four_geom = extra["four-camera"]
+    tv, tv_geom = extra["tv"]
+    assert four_geom == RayGeom(4, res, res, s, False) and four.shape == (1, four_geom.n_points, 3)
+    four_fine, four_fine_geom = extra["four-camera fine"]
+    imp = g.cfg.rendering.depth_resolution_importance
+    assert four_fine_geom == RayGeom(4, res, res, imp, True)
+    assert four_fine.shape == (1, four_fine_geom.n_points, 3)
+    assert tv_geom is None and tv.shape == (1, 2000, 3)

@@ -161,7 +161,7 @@ def _tune_both(jgen, lpips_pair, num_steps, threshold):
     draws = []
     for step in range(num_steps):
         k_recon, _ = jax.random.split(jax.random.fold_in(rng, step))
-        draws.append(_render_draws(jg, k_recon))
+        draws.append({"recon": _render_draws(jg, k_recon)})
     pg = _port_gen(params)
     before = {k: v.detach().clone() for k, v in pg.state_dict().items()}
     psettings = PC.CoachSettings(**settings.__dict__)
@@ -206,13 +206,48 @@ def test_tune_generator_early_stop(jgen, lpips_pair):
         np.testing.assert_array_equal(np.asarray(jflat[k]), before[k].numpy())
 
 
-def test_tune_generator_rejects_unported_terms(jgen, lpips_pair):
-    _, params = jgen
-    pg = _port_gen(params)
-    inputs = PC.CoachInputs(target=torch.zeros(1, 3, 128, 128), camera=pcam.canonical_camera(),
-                            w_pivot=torch.zeros(1, pg.num_ws, pg.w_dim))
-    with pytest.raises(NotImplementedError, match="rot_lambda"):
-        PC.tune_generator(pg, lpips_pair[2], inputs, PC.CoachSettings(), device="cpu")
+def test_tune_generator_renders_with_stage1_noise(monkeypatch):
+    """Every render of a RotBbox step (recon, rot, depth) reads the
+    stage-1 noise maps in all of the generator's noise buffers, the
+    superresolution's too (sr_noise_mode='const' reads them), as
+    spi_tpu renders every term from its substituted params; the buffers
+    are left as they were."""
+    from spi_tpu_torch.utils.params import extract_noise, init_noise_like
+
+    pg = TriPlaneGenerator(tiny_test_config(sr_noise_mode="const"), device="cpu", seed=0)
+    noise = init_noise_like(pg, torch.Generator().manual_seed(3))
+    assert any(k.startswith("superresolution.") for k in noise)
+    before = {k: v.clone() for k, v in extract_noise(pg).items()}
+    seen = []
+    synth = TriPlaneGenerator.synthesis_from_planes
+
+    def spy(self, *args, **kwargs):
+        if self is pg:
+            bufs = extract_noise(pg)
+            seen.append(all(torch.equal(bufs[k], noise[k]) for k in noise))
+        return synth(self, *args, **kwargs)
+
+    monkeypatch.setattr(TriPlaneGenerator, "synthesis_from_planes", spy)
+    res = pg.cfg.img_resolution
+    inputs = PC.CoachInputs(target=torch.zeros(1, 3, res, res),
+                            camera=pcam.canonical_camera(yaw=0.3),
+                            w_pivot=torch.zeros(1, pg.num_ws, pg.cfg.w_dim))
+    settings = PC.CoachSettings(num_steps=1, lpips_threshold=-1.0, mirror_rot_lambda=0.0)
+    PC.tune_generator(pg, LPIPS(device="cpu", **SMALL_VGG), inputs, settings, noise=noise,
+                      rng=torch.Generator().manual_seed(1), device="cpu")
+    assert seen == [True, True, True]  # recon, rot, tuned depth
+    for k, v in extract_noise(pg).items():
+        assert torch.equal(v, before[k]), k
+
+
+def test_tune_generator_rejects_unported_terms():
+    """Every stage-2 term is ported; what stage 2 still lacks, bfloat16
+    compute and several images at once, raises at the CLI."""
+    from spi_tpu_torch.cli import run_inversion
+
+    for argv, what in (([], "bfloat16"), (["--fp32", "--parallel_images", "2"], "parallel")):
+        with pytest.raises(NotImplementedError, match=what):
+            run_inversion.main(["--data_root", "unused", "--device", "cpu", *argv])
 
 
 def test_coach_settings_match_jax():
