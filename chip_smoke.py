@@ -8,39 +8,45 @@ Phases (any failure exits non-zero):
      atomics from the SASS (no CAS-loop shared atomic anywhere);
   2. hold each kernel against its plain PyTorch version on the card at
      the shapes its path gives it (the splat also at a fine and a
-     two-camera pass of a full-width render of phase 4's model), and time
-     kernel, plain version and PyTorch library yardstick, both
-     back-to-back and device-only (tools/timing.py), beside the roofline
-     bound; with --parent, time each such checkout's splat and
-     win_scatter kernels in turns with this one on the same inputs;
+     two-camera pass of a full-width render of phase 4's model; bias_act
+     in float32 and in bfloat16), and time kernel, plain version and
+     PyTorch library yardstick, both back-to-back and device-only
+     (tools/timing.py), beside the roofline bound; with --parent, time
+     each such checkout's splat and win_scatter kernels in turns with this
+     one on the same inputs;
   3. tiny_test_config synthesis forward and w / noise / weight gradients:
      on the card with the kernels versus on the CPU with the plain
-     versions, same weights, same injected random draws;
+     versions, same weights, same injected random draws, in float32 and
+     in bfloat16;
   4. stage-1 'sg' projection at full ffhq512_128_config width (random
-     seeded weights), a few steps, with every kernel's launch count;
-  5. one more 'sg' step under torch.profiler: the card's time by kernel
-     and by kind of kernel, and its busy share of a step;
+     seeded weights), a few steps, with every kernel's launch count, in
+     turns float32, bfloat16, bfloat16, float32;
+  5. one more 'sg' step under torch.profiler in each dtype: the card's
+     time by kernel and by kind of kernel, and its busy share of a step;
   6. stage-1 'mir' projection at full width from a yawed camera (two
-     cameras rendered from one set of planes);
-  7. stage-2 recon-only tuning at full width from phase 4's w and noise;
+     cameras rendered from one set of planes), float32 then bfloat16;
+  7. stage-2 recon-only tuning at full width from phase 4's w and noise,
+     float32 then bfloat16;
   8. the probe tools (spi_tpu_torch/tools), each run once;
   9. SPI's RotBbox stage 2 at full width from phase 4's w and noise, from
      a yawed camera with a synthetic face mask and landmarks: the
      regularizer steps' and the reconstruction steps' times and launches,
-     and one regularizer step under torch.profiler;
+     and one regularizer step under torch.profiler, float32 then bfloat16;
  10. the inversion CLI end to end at full width on a synthetic identity
      written under build/ (both stages, SPI's RotBbox weights), its output
-     tree, and a second run that reuses the first one's embedding.
+     tree, and a second run that reuses the first one's embedding: with
+     --fp32, then without it (bfloat16, the CLI's default).
 Phase 3 also holds one tiny_test_config RotBbox step (all four
 regularizers, the mirror term on) on the card against the CPU: its LPIPS
-and every weight gradient.
+and every weight gradient, in both dtypes.
 
 Each path (phases 3, 4, 6, 7, 9, 10 and each tool) runs with the launch
 counts set to 0 just before it and fails unless each kernel it is meant
-to launch was launched. Prints the card's name and power limit, one
-`{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`. TF32
-is off throughout: the port computes in float32, as the JAX reference
-does.
+to launch was launched: a bfloat16 path the bias_act kernels' bf16 forms.
+Prints the card's name and power limit, one `{"kernels": [...]}` line
+(the bf16 forms' launches from the bfloat16 'sg' run), and last `{"ok":
+true, "device": {...}}`. TF32 is off throughout, as the JAX reference
+computes float32 in full.
 """
 
 from __future__ import annotations
@@ -57,9 +63,32 @@ TOL_SPLAT = 1e-4     # relative to max |ref|: f32 atomics add in run-dependent o
 TOL_SCATTER = 1e-5   # relative to max |ref|: the probes' f32 atomics add in any order
 TOL_ELEMWISE = 1e-5  # absolute + relative: same f32 formulas, other libm approximations
 TOL_SYNTH = 1e-3     # relative to max |ref|: card vs CPU, other summation orders end to end
+# bf16 bias_act, kernel vs plain version: linear and lrelu bitwise (the same
+# f32 operations in the same order, one rounding); the other activations
+# within 1 bf16 ulp (other f32 libm approximations before the rounding).
+# Where act' is formed from y by a difference that cancels as the
+# activation saturates (tanh 1 - y^2, sigmoid y(1 - y), elu y + 1, selu
+# y + lambda alpha), dx is also taken within TOL_SATURATED_DX * |g| * gain:
+# there a few f32 ulps of y become many bf16 ulps of a small dx.
+TOL_BF16_ULP = 1.0
+TOL_SATURATED_DX = 1e-5
+SATURATING = ("tanh", "sigmoid", "elu", "selu")
+# bf16 end to end, card vs CPU (as the CPU tests hold the port's bf16 to
+# spi_tpu's): outputs within RMS_BF16 of each other, and each device's
+# error against the CPU's float32 run within BF16_FACTOR times the CPU's
+# own bf16 error (+ 1e-3 on outputs): the two round in other places.
+RMS_BF16 = 0.05
+BF16_FACTOR = 2.0
 
 # The kernels each path is meant to launch.
 INVERSION_KERNELS = ("plane_splat", "bias_act_fwd", "bias_act_bwd")
+BF16_KERNELS = ("plane_splat", "bias_act_fwd_bf16", "bias_act_bwd_bf16")
+PATH_KERNELS = {"float32": INVERSION_KERNELS, "bfloat16": BF16_KERNELS}
+
+
+def tag(dtype):
+    """A label's suffix: none for float32 (the earlier slices' labels), ' bf16'."""
+    return "" if dtype == "float32" else " bf16"
 TOOL_KERNELS = {"profile_gather": ("row_gather",), "probe_scatter": ("row_scatter_add",),
                 "probe_winscatter": ("win_scatter",)}
 # The tolerance of each tool's `check`: the gather is exact, the scatters
@@ -349,6 +378,155 @@ def phase_bias_act(dev):
     return out
 
 
+def bf16_ulp(t):
+    """The spacing of bfloat16 values at each entry of `t` (a float32 tensor
+    of bf16 values): 2^(e - 8) for |t| in [2^(e-1), 2^e)."""
+    import torch
+
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8).clamp_min(2.0 ** -133)
+
+
+def phase_bias_act_bf16(dev):
+    """Rows 2-3 in bfloat16: the kernels' bf16 forms against their plain
+    versions (`bias_act_plain`, `bias_act_grad_plain`), all 9 activations,
+    clamped (2.5) and not, gain 1.7: linear and lrelu bitwise, the others
+    within TOL_BF16_ULP (the saturating activations' dx see
+    TOL_SATURATED_DX); where an activation's f32 value lies within 1e-5 of
+    the clamp, the two may mask the gradient apart, so those elements are
+    left out of the backward's comparison and counted. Four cases: the
+    StyleGAN2 block and the decoder shapes (16-byte aligned, 8 values a
+    thread), `unaligned` (views one element into their buffers: the scalar
+    form) and `tail` (n % 8 = 3: the 8-wide form's last elements). Then
+    the times at the main path's activation, beside the bf16 bounds, and
+    the scalar form's at the block shape beside the 8-wide form's."""
+    import torch
+
+    from spi_tpu_torch.ops.bias_act import (
+        activation_funcs,
+        bias_act_bwd_cuda,
+        bias_act_fwd_cuda,
+        bias_act_grad_plain,
+        bias_act_plain,
+    )
+    from spi_tpu_torch.tools.timing import device_ms
+
+    bf = torch.bfloat16
+    # label: (shape, dim, offset in elements from the buffer's start)
+    cases = {"block256": ((1, 128, 256, 256), 1, 0), "decoder": ((128 * 128 * 48, 64), 1, 0),
+             "unaligned": ((1, 64, 128, 128), 1, 1), "tail": ((1, 5, 33, 31), 1, 0)}
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def randn(shape, offset=0, scale=1.0):
+        buf = torch.empty(math.prod(shape) + offset, device=dev, dtype=bf)
+        t = buf[offset:].view(shape)
+        t.copy_(torch.randn(*shape, device=dev, generator=gen) * scale)
+        return t
+
+    rows, worst = {}, {"bias_act_fwd_bf16": 0.0, "bias_act_bwd_bf16": 0.0}
+    for label, (shape, dim, offset) in cases.items():
+        x, g = randn(shape, offset, 3.0), randn(shape, offset)
+        b = randn((shape[dim],))
+        if label == "unaligned":
+            check(x.data_ptr() % 16 != 0 and g.data_ptr() % 16 != 0, "unaligned case is aligned")
+        if label == "tail":
+            check(x.numel() % 8 != 0, "tail case is a multiple of 8")
+        bshape = [-1 if i == dim else 1 for i in range(x.ndim)]
+        for act in sorted(activation_funcs):
+            spec = activation_funcs[act]
+            for clamp in (None, 2.5):
+                cfg = (dim, spec.cuda_id, spec.def_alpha, 1.7, clamp)
+                y = bias_act_fwd_cuda(x, b, *cfg)
+                dx = bias_act_bwd_cuda(g, x, b, *cfg)
+                yr = bias_act_plain(x, b, dim=dim, act=act, gain=1.7, clamp=clamp)
+                dxr = bias_act_grad_plain(g, x, b, dim=dim, act=act, gain=1.7, clamp=clamp)
+                torch.cuda.synchronize()
+                errs = {"bias_act_fwd_bf16": float((y.float() - yr.float()).abs().max()),
+                        "bias_act_bwd_bf16": float((dx.float() - dxr.float()).abs().max())}
+                for k, v in errs.items():
+                    worst[k] = max(worst[k], v)
+                what = f"bf16 {act} clamp {clamp} at {label}"
+                n_near = 0
+                if act in ("linear", "lrelu"):
+                    check(torch.equal(y, yr), f"bias_act_fwd_bf16 {what} is not bitwise")
+                    check(torch.equal(dx, dxr), f"bias_act_bwd_bf16 {what} is not bitwise")
+                    ulps = (0.0, 0.0)
+                else:
+                    dy = (y.float() - yr.float()).abs() / bf16_ulp(yr)
+                    dd = (dx.float() - dxr.float()).abs()
+                    ok = dd <= TOL_BF16_ULP * bf16_ulp(dxr)
+                    if act in SATURATING:
+                        ok |= dd <= TOL_SATURATED_DX * g.float().abs() * 1.7
+                    if clamp is not None:
+                        xb = (x + b.reshape(bshape)).float()
+                        pre = spec.func(xb, spec.def_alpha) * 1.7
+                        near = ((pre.abs() - clamp).abs() <= 1e-5 * clamp)
+                        n_near = int(near.sum())
+                        ok |= near
+                        del xb, pre, near
+                    ulps = (float(dy.max()), float((dd / bf16_ulp(dxr))[~ok].max())
+                            if not bool(ok.all()) else 0.0)
+                    check(ulps[0] <= TOL_BF16_ULP, f"bias_act_fwd_bf16 {what}: {ulps[0]} ulp")
+                    check(bool(ok.all()), f"bias_act_bwd_bf16 {what}: {int((~ok).sum())} "
+                          f"elements above tolerance, up to {ulps[1]} ulp")
+                    check(n_near <= max(1e-4 * x.numel(), 1), f"{n_near} elements at the clamp, "
+                          f"{what}")
+                    del dy, dd, ok
+                log(f"bias_act bf16 {act:8s} clamp {str(clamp):4s} {label:9s} {tuple(shape)}: "
+                    f"fwd max abs err {errs['bias_act_fwd_bf16']:.2e} ({ulps[0]:.0f} ulp), "
+                    f"bwd {errs['bias_act_bwd_bf16']:.2e} ({n_near} elements at the clamp "
+                    f"left out)")
+                del y, dx, yr, dxr
+        if label in ("unaligned", "tail"):
+            continue
+        # Times with the main path's activation (lrelu, gain sqrt 2, clamp 256 * sqrt 2).
+        spec = activation_funcs["lrelu"]
+        clamp = 256.0 * spec.def_gain
+        cfg = (dim, spec.cuda_id, spec.def_alpha, spec.def_gain, clamp)
+        fns = [lambda: bias_act_fwd_cuda(x, b, *cfg), lambda: bias_act_bwd_cuda(g, x, b, *cfg),
+               lambda: bias_act_plain(x, b, dim=dim, act="lrelu", clamp=clamp),
+               lambda: bias_act_grad_plain(g, x, b, dim=dim, act="lrelu", clamp=clamp)]
+        if label == "block256":
+            # The scalar form on copies one element into their buffers.
+            xu, gu = randn(shape, 1), randn(shape, 1)
+            xu.copy_(x)
+            gu.copy_(g)
+            check(torch.equal(bias_act_fwd_cuda(xu, b, *cfg), fns[0]())
+                  and torch.equal(bias_act_bwd_cuda(gu, xu, b, *cfg), fns[1]()),
+                  "the scalar and 8-wide bf16 forms differ")
+            fns += [lambda: bias_act_fwd_cuda(xu, b, *cfg),
+                    lambda: bias_act_bwd_cuda(gu, xu, b, *cfg)]
+        t = [time_ms(fn) for fn in fns]
+        d = [device_ms(fn) for fn in fns]
+        n, c = x.numel(), shape[dim]
+        fb = bound_ms(2 * n * 2 + c * 2, 4 * n)
+        bb = bound_ms(3 * n * 2 + c * 2, 5 * n)
+        log(f"bias_act bf16 lrelu {label} {tuple(shape)}: fwd {t[0]:.4f} ms (plain {t[2]:.4f}, "
+            f"bound {fb[0]:.4f}), bwd {t[1]:.4f} ms (plain {t[3]:.4f}, bound {bb[0]:.4f}); "
+            f"device-only: fwd {d[0]:.4f} (plain {d[2]:.4f}), bwd {d[1]:.4f} (plain {d[3]:.4f}) ms")
+        rows[label] = {"fwd": (t[0], t[2], fb, d[0], d[2]), "bwd": (t[1], t[3], bb, d[1], d[3])}
+        if label == "block256":
+            log(f"bias_act bf16 lrelu {label}, scalar form (unaligned): fwd {t[4]:.4f} ms, "
+                f"bwd {t[5]:.4f} ms; device-only: fwd {d[4]:.4f}, bwd {d[5]:.4f} ms")
+            rows["scalar"] = {"fwd": (t[4], d[4]), "bwd": (t[5], d[5])}
+            del xu, gu
+        del x, g
+    out = []
+    for name, line in (("fwd", 80), ("bwd", 96)):
+        ms, plain, (b_ms, b_by), dms, plain_d = rows["block256"][name]
+        dec = rows["decoder"][name]
+        out.append({"name": f"bias_act_{name}_bf16", "route": "cuda",
+                    "source": "spi_tpu_torch/csrc/bias_act.cu",
+                    "replaces": f"spi_tpu/ops/bias_act_pallas.py:{line}",
+                    "max_abs_err": worst[f"bias_act_{name}_bf16"], "ms": ms, "device_ms": dms,
+                    "plain_ms": plain, "plain_device_ms": plain_d, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None, "library_device_ms": None,
+                    "decoder_ms": dec[0], "decoder_device_ms": dec[3],
+                    "decoder_bound_ms": dec[2][0], "scalar_ms": rows["scalar"][name][0],
+                    "scalar_device_ms": rows["scalar"][name][1]})
+    return out
+
+
 def phase_win_scatter(dev, parents=()):
     """Row 4: the windowed splat at the probe's shapes (384 tiles of 2048
     points, C = 32, into 256 x 256 x 32), K1 64x64 and 64x32 windows and
@@ -559,11 +737,12 @@ def phase_row_scatter_add(dev):
             "replaces": "tools/probe_scatter_r5.py:161", "max_abs_err": worst, **row}
 
 
-def phase_tiny_synthesis(dev):
-    """Card (kernels) vs CPU (plain versions) on tiny_test_config: the
-    outputs and the gradients of w, the noise maps and every weight (the
-    weight gradients cross each bias_act kernel's bias path and the splat
-    into the planes, as stage-2 tuning does)."""
+def tiny_synthesis(device, dtype):
+    """tiny_test_config synthesis forward and backward on `device` in
+    compute dtype `dtype`: the same seeded weights (nonzero noise
+    strengths), w, noise maps and injected renderer draws on any device.
+    Returns ({output: tensor}, {'grad_ws', 'grad_noise/<map>': tensor},
+    {weight: gradient}, launches), all on the CPU."""
     import torch
 
     from spi_tpu_torch.models import TriPlaneGenerator, tiny_test_config
@@ -571,7 +750,7 @@ def phase_tiny_synthesis(dev):
     from spi_tpu_torch.utils import camera as cam
     from spi_tpu_torch.utils.params import extract_noise, replace_noise
 
-    cfg = tiny_test_config()
+    cfg = tiny_test_config(compute_dtype=dtype)
     gen = torch.Generator().manual_seed(3)
     m = cfg.neural_rendering_resolution ** 2
     draws = {
@@ -579,38 +758,77 @@ def phase_tiny_synthesis(dev):
         "exponential": torch.empty(m, cfg.rendering.depth_resolution_importance + 1)
         .exponential_(generator=gen),
     }
-    results = {}
-    for device in ("cpu", dev):
-        g = TriPlaneGenerator(cfg, device=device, seed=0)
-        with torch.no_grad():  # nonzero noise strengths, so noise gets a synthesis gradient
-            for name, t in g.named_parameters():
-                if name.endswith("noise_strength"):
-                    t.fill_(0.1)
-        ws = (torch.randn(1, g.num_ws, g.w_dim, generator=torch.Generator().manual_seed(4))
-              * 0.5).to(device).requires_grad_(True)
-        noise = {k: v.clone().requires_grad_(True) for k, v in extract_noise(g).items()
-                 if k.startswith("backbone")}
-        r1 = torch.randn(1, 3, 128, 128, generator=torch.Generator().manual_seed(5)).to(device)
-        r2 = torch.randn(1, 3, 16, 16, generator=torch.Generator().manual_seed(6)).to(device)
-        before = dict(_lib.launch_counts)
-        with replace_noise(g, noise):
-            out = g.synthesis(ws, cam.canonical_camera(device=device),
-                              draws={k: v.to(device) for k, v in draws.items()})
-        loss = (out["image"] * r1).sum() + (out["image_raw"] * r2).sum()
-        loss.backward()
-        launched = {k: _lib.launch_counts[k] - before[k] for k in before}
-        results[device] = ({k: v.detach().cpu() for k, v in out.items()}, ws.grad.cpu(),
-                           {k: v.grad.cpu() for k, v in noise.items()},
-                           {k: p.grad.cpu() for k, p in g.named_parameters()
-                            if p.grad is not None}, launched)
-    (ref_out, ref_gw, ref_gn, ref_gp, cpu_launched) = results["cpu"]
-    out, gw, gn, gp, launched = results[dev]
-    check(not any(cpu_launched.values()), f"CPU run launched kernels: {cpu_launched}")
-    check(all(launched[k] for k in INVERSION_KERNELS), f"card run skipped a kernel: {launched}")
+    g = TriPlaneGenerator(cfg, device=device, seed=0)
+    with torch.no_grad():  # nonzero noise strengths, so noise gets a synthesis gradient
+        for name, t in g.named_parameters():
+            if name.endswith("noise_strength"):
+                t.fill_(0.1)
+    ws = (torch.randn(1, g.num_ws, g.w_dim, generator=torch.Generator().manual_seed(4))
+          * 0.5).to(device).requires_grad_(True)
+    noise = {k: v.clone().requires_grad_(True) for k, v in extract_noise(g).items()
+             if k.startswith("backbone")}
+    r1 = torch.randn(1, 3, 128, 128, generator=torch.Generator().manual_seed(5)).to(device)
+    r2 = torch.randn(1, 3, 16, 16, generator=torch.Generator().manual_seed(6)).to(device)
+    before = dict(_lib.launch_counts)
+    with replace_noise(g, noise):
+        out = g.synthesis(ws, cam.canonical_camera(device=device),
+                          draws={k: v.to(device) for k, v in draws.items()})
+    loss = (out["image"] * r1).sum() + (out["image_raw"] * r2).sum()
+    loss.backward()
+    launched = {k: _lib.launch_counts[k] - before[k] for k in before}
+    check(all(v.dtype == torch.float32 for v in out.values()), f"{dtype} outputs not float32")
+    grads = {"grad_ws": ws.grad.cpu(),
+             **{f"grad_noise/{k}": v.grad.cpu() for k, v in noise.items()}}
+    return ({k: v.detach().cpu() for k, v in out.items()}, grads,
+            {k: p.grad.cpu() for k, p in g.named_parameters() if p.grad is not None}, launched)
+
+
+def check_bf16(label, card, cpu, ref, rms_bound=None):
+    """bf16 on the card against bf16 on the CPU, each against the CPU's
+    float32 run `ref` ({name: tensor}), relative to each tensor's largest
+    entry: the largest and the median of those errors on the card at most
+    BF16_FACTOR times the CPU's (+ 1e-3). rms_bound: also the RMS of card
+    minus CPU at most that, tensor by tensor (outputs)."""
+    import statistics
+
+    e_card = {k: rel_err(card[k], ref[k]) for k in ref}
+    e_cpu = {k: rel_err(cpu[k], ref[k]) for k in ref}
+    worst = sorted(((e, k) for k, e in e_card.items()), reverse=True)
+    stats = {"max": (worst[0][0], max(e_cpu.values())),
+             "median": (statistics.median(e_card.values()), statistics.median(e_cpu.values()))}
+    log(f"{label} bf16 error against the CPU's float32, relative to each tensor's max: "
+        + ", ".join(f"{s} card {a:.3e} / CPU {b:.3e}" for s, (a, b) in stats.items())
+        + f" over {len(ref)} tensors; the card's worst "
+        + ", ".join(f"{k} {e:.2e}" for e, k in worst[:3]))
+    for s, (a, b) in stats.items():
+        check(math.isfinite(a) and a <= BF16_FACTOR * b + 1e-3,
+              f"{label} bf16 {s} error {a:.3e} above {BF16_FACTOR} x the CPU's {b:.3e}")
+    if rms_bound is not None:
+        for k in ref:
+            rms = float((card[k] - cpu[k]).square().mean().sqrt())
+            log(f"{label} bf16 {k}: rms card - CPU {rms:.3e} (bound {rms_bound})")
+            check(rms <= rms_bound, f"{label} bf16 {k}: rms {rms:.3e} above {rms_bound}")
+
+
+def phase_tiny_synthesis(dev):
+    """Card (kernels) vs CPU (plain versions) on tiny_test_config: the
+    outputs and the gradients of w, the noise maps and every weight (the
+    weight gradients cross each bias_act kernel's bias path and the splat
+    into the planes, as stage-2 tuning does). float32 to TOL_SYNTH; then
+    bfloat16 by check_bf16, with bias_act launched in bf16."""
+    runs = {(d, t): tiny_synthesis(d, t) for d in ("cpu", dev) for t in ("float32", "bfloat16")}
+    for (d, t), (*_, launched) in runs.items():
+        if d == "cpu":
+            check(not any(launched.values()), f"CPU {t} run launched kernels: {launched}")
+        else:
+            check(all(launched[k] for k in PATH_KERNELS[t]),
+                  f"card {t} run skipped a kernel: {launched}")
+    ref_out, ref_g, ref_gp, _ = runs[("cpu", "float32")]
+    out, grads, gp, _ = runs[(dev, "float32")]
     check(set(gp) == set(ref_gp), "the card and the CPU give gradients to other weights")
     errs = {k: rel_err(out[k], ref_out[k]) for k in ref_out}
-    errs["grad_ws"] = rel_err(gw, ref_gw)
-    errs["grad_noise"] = max(rel_err(gn[k], ref_gn[k]) for k in ref_gn)
+    errs["grad_ws"] = rel_err(grads["grad_ws"], ref_g["grad_ws"])
+    errs["grad_noise"] = max(rel_err(grads[k], ref_g[k]) for k in ref_g if k != "grad_ws")
     weight_errs = sorted(((rel_err(gp[k], ref_gp[k]), k) for k in ref_gp), reverse=True)
     errs["grad_weights"] = weight_errs[0][0]
     log(f"tiny synthesis: {len(weight_errs)} weight gradients, the worst "
@@ -619,13 +837,19 @@ def phase_tiny_synthesis(dev):
         + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {TOL_SYNTH})")
     for k, v in errs.items():
         check(math.isfinite(v) and v <= TOL_SYNTH, f"tiny synthesis {k} disagrees: {v:.3e}")
+    card, cpu = runs[(dev, "bfloat16")], runs[("cpu", "bfloat16")]
+    check(set(card[2]) == set(ref_gp) == set(cpu[2]), "bf16 runs give gradients to other weights")
+    check_bf16("tiny synthesis outputs", card[0], cpu[0], ref_out, rms_bound=RMS_BF16)
+    check_bf16("tiny synthesis w and noise gradients", card[1], cpu[1], ref_g)
+    check_bf16("tiny synthesis weight gradients", card[2], cpu[2], ref_gp)
 
 
-def tiny_rotbbox_step(device):
-    """One tiny_test_config RotBbox step on `device` with all four
-    regularizers (the camera yawed by 0.4, so the mirror term counts),
-    the same seeded weights and the same injected draws on any device.
-    Returns (the step's LPIPS, {weight: gradient on the CPU}, launches)."""
+def tiny_rotbbox_step(device, dtype="float32"):
+    """One tiny_test_config RotBbox step on `device` in compute dtype
+    `dtype` with all four regularizers (the camera yawed by 0.4, so the
+    mirror term counts), the same seeded weights and the same injected
+    draws on any device. Returns (the step's LPIPS, {weight: gradient on
+    the CPU}, launches)."""
     import torch
 
     from spi_tpu_torch.criteria.bbox_cx import BoxCXLoss
@@ -638,7 +862,7 @@ def tiny_rotbbox_step(device):
     from spi_tpu_torch.utils import camera as cam
     from spi_tpu_torch.utils.params import trainable_parameters
 
-    cfg = tiny_test_config()
+    cfg = tiny_test_config(compute_dtype=dtype)
     g = TriPlaneGenerator(cfg, device=device, seed=0)
     with torch.no_grad():  # nonzero noise strengths, so they get a gradient
         for name, t in g.named_parameters():
@@ -680,7 +904,9 @@ def tiny_rotbbox_step(device):
 def phase_tiny_rotbbox(dev):
     """Card (kernels) vs CPU (plain versions): one tiny RotBbox step's LPIPS
     and the gradient of every weight, to TOL_SYNTH of each one's largest
-    entry."""
+    entry; then in bfloat16, the gradients by check_bf16 and the LPIPS's
+    error against the CPU's float32 within BF16_FACTOR times the CPU's
+    bf16 error (+ 1e-3 of it), with bias_act launched in bf16."""
     ref_lp, ref_g, cpu_launched = tiny_rotbbox_step("cpu")
     lp, grads, launched = tiny_rotbbox_step(dev)
     check(not any(cpu_launched.values()), f"CPU run launched kernels: {cpu_launched}")
@@ -694,6 +920,16 @@ def phase_tiny_rotbbox(dev):
     check(lp_err <= TOL_SYNTH, f"tiny RotBbox LPIPS disagrees: {lp_err:.3e}")
     check(all(math.isfinite(e) and e <= TOL_SYNTH for e, _ in errs),
           f"tiny RotBbox gradient {errs[0][1]} disagrees: {errs[0][0]:.3e}")
+    cpu_lp, cpu_g, cpu_launched = tiny_rotbbox_step("cpu", "bfloat16")
+    lp, grads, launched = tiny_rotbbox_step(dev, "bfloat16")
+    check(not any(cpu_launched.values()), f"CPU bf16 run launched kernels: {cpu_launched}")
+    check(all(launched[k] for k in BF16_KERNELS), f"card bf16 run skipped a kernel: {launched}")
+    check(set(grads) == set(ref_g) == set(cpu_g), "bf16 runs give gradients to other weights")
+    e_card, e_cpu = abs(lp - ref_lp) / abs(ref_lp), abs(cpu_lp - ref_lp) / abs(ref_lp)
+    log(f"tiny RotBbox step bf16: LPIPS card {lp:.6f}, CPU {cpu_lp:.6f}, CPU float32 "
+        f"{ref_lp:.6f} (errors {e_card:.2e} / {e_cpu:.2e}); launches {launched}")
+    check(e_card <= BF16_FACTOR * e_cpu + 1e-3, f"tiny RotBbox bf16 LPIPS error {e_card:.3e}")
+    check_bf16("tiny RotBbox weight gradients", grads, cpu_g, ref_g)
 
 
 def drive(label, kernels, fn):
@@ -723,19 +959,19 @@ def drive(label, kernels, fn):
     return result, launches, steps, step_s, steady
 
 
-def build_model(dev):
-    """step_time's workload: ffhq512_128_config at its published widths,
-    random seeded weights; LPIPS-VGG16; a random 512^2 target; the
-    canonical camera."""
+def build_model(dev, dtype="float32"):
+    """step_time's workload: ffhq512_128_config at its published widths and
+    compute dtype `dtype`, random seeded weights; LPIPS-VGG16; a random
+    512^2 target; the canonical camera."""
     import torch
 
     from spi_tpu_torch.tools import step_time
 
     t0 = time.perf_counter()
-    model = step_time.build_model(dev)
+    model = step_time.build_model(dev, dtype)
     torch.cuda.synchronize()
-    log(f"ffhq512_128: {sum(p.numel() for p in model[0].parameters())} generator parameters, "
-        f"built in {time.perf_counter() - t0:.1f} s")
+    log(f"ffhq512_128 {dtype}: {sum(p.numel() for p in model[0].parameters())} generator "
+        f"parameters, built in {time.perf_counter() - t0:.1f} s")
     return model
 
 
@@ -750,20 +986,25 @@ def check_projection(g, label, w, noise, dists):
           f"{label}: noise is not finite")
 
 
-def phase_project(dev, model):
-    """Stage-1 'sg' projection at full FFHQ-512 width. Returns (w, noise),
-    the launch counts of the run and the median step time (s) of the
-    steps after the second."""
+def phase_project(dev, model, dtype="float32"):
+    """Stage-1 'sg' projection at full FFHQ-512 width, in compute dtype
+    `dtype` (`model`'s). Returns (w, noise), the launch counts of the run
+    and the median step time (s) of the steps after the second."""
     from spi_tpu_torch.tools.step_time import PIVOT_STEPS, projection
 
+    label = "sg project" + tag(dtype)
     (w, noise, dists), launches, _, _, steady = drive(
-        "sg project", INVERSION_KERNELS, projection(model, "sg", PIVOT_STEPS, dev))
-    check_projection(model[0], "sg project", w, noise, dists)
+        label, PATH_KERNELS[dtype], projection(model, "sg", PIVOT_STEPS, dev))
+    check_projection(model[0], label, w, noise, dists)
     return (w, noise), launches, steady
 
 
 # Kernel name fragments -> the kind of work, for phase 5's breakdown. cuDNN's
 # FFT convolutions run as fft2d_* kernels around complex (float2) products.
+# A convolution or matmul kernel whose name carries a tensor-core or
+# half-width type fragment (TENSOR_CORE) counts as its own kind.
+CONV_OR_MATMUL = ("conv", "implicit", "wgrad", "dgrad", "gemm", "gemv", "xmma", "cutlass", "fft")
+TENSOR_CORE = ("bf16", "f16", "tf32", "s16816", "s1688", "hmma", "gmma", "tensorop", "wmma")
 KINDS = (
     ("plane_splat", "splat kernel"), ("bias_act", "bias_act kernels"),
     ("fft", "convolution (FFT)"), ("float2", "convolution (FFT)"),
@@ -803,8 +1044,13 @@ def profile_step(label, fn, wait, steady_s, of_what):
     for name, (t, _) in per_kernel.items():
         low = name.lower()
         kind = next((k for frag, k in KINDS if frag in low), "other")
+        if (kind not in ("splat kernel", "bias_act kernels")
+                and any(f in low for f in CONV_OR_MATMUL) and any(f in low for f in TENSOR_CORE)):
+            kind = "convolution/matmul on tensor cores"
         kinds[kind] = kinds.get(kind, 0.0) + t
-    log(f"profile: one {label}, device time {total:.3f} ms in {len(per_kernel)} kernels")
+    launches = sum(n for _, n in per_kernel.values())
+    log(f"profile: one {label}, device time {total:.3f} ms in {len(per_kernel)} kernels, "
+        f"{launches} launches")
     for kind, t in sorted(kinds.items(), key=lambda kv: -kv[1]):
         log(f"profile kind {kind:24s} {t:10.3f} ms  {100 * t / total:5.1f}%")
     for name, (t, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:25]:
@@ -813,16 +1059,16 @@ def profile_step(label, fn, wait, steady_s, of_what):
         f"over {of_what} {steady_s * 1e3:.3f} ms)")
 
 
-def phase_profile(dev, model, steady_s):
+def phase_profile(dev, model, steady_s, dtype="float32"):
     """The third of three 'sg' steps under torch.profiler, against phase 4's
-    median step time."""
+    median step time (of the same dtype)."""
     from spi_tpu_torch.tools.step_time import projection
 
-    profile_step("'sg' step", projection(model, "sg", 3, dev, seed=9), 1, steady_s,
-                 "phase 4's median step time")
+    profile_step(f"'sg'{tag(dtype)} step", projection(model, "sg", 3, dev, seed=9), 1, steady_s,
+                 f"phase 4's median{tag(dtype)} step time")
 
 
-def phase_mir(dev, model, num_steps=4):
+def phase_mir(dev, model, num_steps=4, dtype="float32"):
     """Stage-1 'mir' projection at full width from a yawed camera, so that
     the mirror term's weight is nonzero. Both cameras render from one set
     of planes, so each render pass's splat serves both in one launch."""
@@ -833,16 +1079,17 @@ def phase_mir(dev, model, num_steps=4):
     weight = float(cam.cal_camera_weight(cam.mirror_camera(camera))[0])
     log(f"mir project: yaw {MIR_YAW}, mirror weight {weight:.5f}")
     check(weight > 0, "the mirror term has no weight at this camera")
+    label = "mir project" + tag(dtype)
     (w, noise, dists), _, steps, _, steady = drive(
-        "mir project", INVERSION_KERNELS, projection(model, "mir", num_steps, dev))
+        label, PATH_KERNELS[dtype], projection(model, "mir", num_steps, dev))
     per_step = steps[-1]
-    check_projection(model[0], "mir project", w, noise, dists)
+    check_projection(model[0], label, w, noise, dists)
     check(per_step["plane_splat"] == 2,
           f"mir: {per_step['plane_splat']} splat launches a step, not one per render pass")
     return steady
 
 
-def phase_tune(dev, model, pivot, num_steps=6):
+def phase_tune(dev, model, pivot, num_steps=6, dtype="float32"):
     """Stage-2 recon-only tuning at full width from phase 4's w and noise;
     the threshold is below any LPIPS value, so random weights do not stop
     it early."""
@@ -853,20 +1100,21 @@ def phase_tune(dev, model, pivot, num_steps=6):
 
     g = model[0]
     before = {k: p.detach().clone() for k, p in trainable_parameters(g).items()}
+    label = "stage-2 tune" + tag(dtype)
     (_, (steps, last_lpips)), _, step_launches, _, steady = drive(
-        "stage-2 tune", INVERSION_KERNELS, tuning(model, pivot, num_steps, dev))
+        label, PATH_KERNELS[dtype], tuning(model, pivot, num_steps, dev))
     per_step = step_launches[-1]
     after = trainable_parameters(g)
     finite = all(bool(torch.isfinite(p).all()) for p in after.values())
     moved = sum(not torch.equal(before[k], p) for k, p in after.items())
-    log(f"stage-2 tune: {steps} steps, last LPIPS {last_lpips:.6f}; weights finite {finite}, "
+    log(f"{label}: {steps} steps, last LPIPS {last_lpips:.6f}; weights finite {finite}, "
         f"{moved} of {len(after)} weight tensors moved")
     check(steps == num_steps and math.isfinite(last_lpips), "stage 2 stopped early or diverged")
     check(finite and moved > 0, "the tuned weights are not finite or did not move")
     return steady, per_step
 
 
-def phase_rotbbox(dev, model, pivot, num_steps=9):
+def phase_rotbbox(dev, model, pivot, num_steps=9, dtype="float32"):
     """SPI's RotBbox stage 2 at full width from phase 4's w and noise
     (step_time.rotbbox: rot 0.1, mirror-rot 0.05, depth 1 from the camera
     yawed by MIR_YAW, synthetic face mask and landmarks). Steps 0, 4 and 8
@@ -886,8 +1134,9 @@ def phase_rotbbox(dev, model, pivot, num_steps=9):
     check(weight > 0, "the mirror-rot term has no weight at this camera")
     g = model[0]
     before = {k: p.detach().clone() for k, p in trainable_parameters(g).items()}
+    label = "rotbbox tune" + tag(dtype)
     (_, (steps, last_lpips)), _, step_launches, step_s, _ = drive(
-        "rotbbox tune", INVERSION_KERNELS, rotbbox(model, pivot, num_steps, dev))
+        label, PATH_KERNELS[dtype], rotbbox(model, pivot, num_steps, dev))
     after = trainable_parameters(g)
     finite = all(bool(torch.isfinite(p).all()) for p in after.values())
     moved = sum(not torch.equal(before[k], p) for k, p in after.items())
@@ -896,13 +1145,13 @@ def phase_rotbbox(dev, model, pivot, num_steps=9):
     rec = [k for k in range(2, num_steps) if k % 4]
     reg_s = [step_s[k - 1] for k in reg]
     rec_s = [step_s[k - 1] for k in rec]
-    log(f"rotbbox tune: {steps} steps, last LPIPS {last_lpips:.6f}; mirror weight "
+    log(f"{label}: {steps} steps, last LPIPS {last_lpips:.6f}; mirror weight "
         f"{weight:.5f}; weights finite {finite}, {moved} of {len(after)} weight tensors moved")
-    log(f"rotbbox tune: regularizer steps {reg} {[round(t, 5) for t in reg_s]} s (median "
+    log(f"{label}: regularizer steps {reg} {[round(t, 5) for t in reg_s]} s (median "
         f"{statistics.median_high(reg_s):.5f}); reconstruction steps {rec} "
         f"{[round(t, 5) for t in rec_s]} s (median {statistics.median_high(rec_s):.5f}); "
         f"mean over steps 1-{num_steps - 1} {sum(step_s) / len(step_s):.5f} s/step")
-    log(f"rotbbox tune: launches in regularizer step {reg[0]} {step_launches[reg[0]]}, in "
+    log(f"{label}: launches in regularizer step {reg[0]} {step_launches[reg[0]]}, in "
         f"reconstruction step {rec[0]} {step_launches[rec[0]]}")
     check(steps == num_steps and math.isfinite(last_lpips), "RotBbox stopped early or diverged")
     check(finite and moved > 0, "the tuned weights are not finite or did not move")
@@ -913,8 +1162,8 @@ def phase_rotbbox(dev, model, pivot, num_steps=9):
         check(step_launches[k]["plane_splat"] == 2,
               f"rotbbox step {k}: {step_launches[k]['plane_splat']} splat launches, not 2")
     reg_median, rec_median = statistics.median_high(reg_s), statistics.median_high(rec_s)
-    profile_step("RotBbox regularizer step", rotbbox(model, pivot, 5, dev), 3, reg_median,
-                 "this phase's median regularizer step time")
+    profile_step(f"RotBbox{tag(dtype)} regularizer step", rotbbox(model, pivot, 5, dev), 3,
+                 reg_median, "this phase's median regularizer step time")
     return reg_median, rec_median
 
 
@@ -945,13 +1194,15 @@ def write_identity(root, name):
     np.save(root / "lm" / name / "target.npy", lm[0].numpy())
 
 
-def phase_cli(dev, first_steps=3, tune_steps=5):
+def phase_cli(dev, dtype, first_steps=3, tune_steps=5):
     """`python -m spi_tpu_torch.cli.run_inversion` in this process at full
-    width (random seeded weights, float32, 'mir' stage 1, RotBbox stage 2
-    with rot 0.1, mirror-rot 0.05, depth 1) on one synthetic identity
-    under build/cli_smoke: the results, the output tree, the npz keys and
-    metric_log.txt; then a second run that reads the first one's
-    embedding and tunes nothing, whose w is the cached pivot."""
+    width (random seeded weights, 'mir' stage 1, RotBbox stage 2 with rot
+    0.1, mirror-rot 0.05, depth 1) in compute dtype `dtype` (bfloat16: the
+    CLI's default, without --fp32) on one synthetic identity under
+    build/cli_smoke: the results, the output tree, the npz keys and
+    metric_log.txt, with the dtype's kernels launched; then a second run
+    that reads the first one's embedding and tunes nothing, whose w is the
+    cached pivot."""
     import os
     import shutil
     from pathlib import Path
@@ -961,14 +1212,14 @@ def phase_cli(dev, first_steps=3, tune_steps=5):
     from spi_tpu_torch.cli import run_inversion
     from spi_tpu_torch.ops import _lib
 
-    root = Path(__file__).resolve().parent / "build" / "cli_smoke"
+    root = Path(__file__).resolve().parent / "build" / f"cli_smoke_{dtype}"
     shutil.rmtree(root, ignore_errors=True)
     write_identity(root / "data", "synth0")
     out = root / "out"
     argv = ["--data_root", str(root / "data"), "--output_root", str(out), "--device", str(dev),
-            "--random_init", "--fp32", "--first_inv_type", "mir",
-            "--first_inv_steps", str(first_steps), "--G_1_type", "RotBbox",
-            "--G_1_step", str(tune_steps), "--pt_rot_lambda", "0.1",
+            "--random_init", *(["--fp32"] if dtype == "float32" else []),
+            "--first_inv_type", "mir", "--first_inv_steps", str(first_steps),
+            "--G_1_type", "RotBbox", "--G_1_step", str(tune_steps), "--pt_rot_lambda", "0.1",
             "--pt_mirror_rot_lambda", "0.05", "--pt_depth_lambda", "1",
             "--LPIPS_value_threshold", "-1"]
     _lib.reset_launch_counts()
@@ -977,11 +1228,12 @@ def phase_cli(dev, first_steps=3, tune_steps=5):
     wall = time.perf_counter() - t0
     launches = dict(_lib.launch_counts)
     r = results[0]
-    log(f"cli: {wall:.1f} s for one identity (stage 1 {r['stage1_s']:.2f} s, stage 2 "
+    label = "cli" + tag(dtype)
+    log(f"{label}: {wall:.1f} s for one identity (stage 1 {r['stage1_s']:.2f} s, stage 2 "
         f"{r['stage2_s']:.2f} s, {r['steps_run']} tuning steps); metrics {r['metrics']}; "
         f"launches {launches}")
-    for k in INVERSION_KERNELS:
-        check(launches[k] > 0, f"kernel {k} was never launched on the CLI path")
+    for k in PATH_KERNELS[dtype]:
+        check(launches[k] > 0, f"kernel {k} was never launched on the {label} path")
     check(len(results) == 1 and r["steps_run"] == tune_steps, f"cli results {results}")
     check(all(math.isfinite(v) for v in r["metrics"].values()), f"cli metrics {r['metrics']}")
     (coach,) = os.listdir(out / "checkpoints")
@@ -1000,7 +1252,7 @@ def phase_cli(dev, first_steps=3, tune_steps=5):
     again = run_inversion.main(argv + ["--load_embedding_coach_name", coach, "--G_1_step", "0"])
     check(np.array_equal(np.asarray(again[0]["w"]), cached),
           "the second run did not reuse the cached pivot")
-    log(f"cli: {coach}: checkpoint with {n_g} G.* arrays, images, embedding and metric log "
+    log(f"{label}: {coach}: checkpoint with {n_g} G.* arrays, images, embedding and metric log "
         f"written; the second run reused the embedding in {time.perf_counter() - t0:.1f} s")
 
 
@@ -1064,24 +1316,43 @@ def main(argv=None) -> int:
     log(f"phase 1: built {path.name}")
     sass_atomics(path)
     model = build_model(dev)
+    models = {"float32": model, "bfloat16": build_model(dev, "bfloat16")}
     kernels = phase(2, "kernels vs plain", lambda: [
-        phase_splat(dev, model, args.parent), *phase_bias_act(dev),
+        phase_splat(dev, model, args.parent), *phase_bias_act(dev), *phase_bias_act_bf16(dev),
         phase_win_scatter(dev, args.parent),
         phase_row_gather(dev), phase_row_scatter_add(dev)])
     phase(3, "tiny synthesis card vs CPU", phase_tiny_synthesis, dev)
     phase(3, "tiny RotBbox step card vs CPU", phase_tiny_rotbbox, dev)
-    pivot, launches, sg_s = phase(4, "sg projection", phase_project, dev, model)
-    phase(5, "profile", phase_profile, dev, model, sg_s)
-    mir_s = phase(6, "mir projection", phase_mir, dev, model)
-    tune_s, _ = phase(7, "stage-2 tuning", phase_tune, dev, model, pivot)
+    # 'sg' in turns, float32, bf16, bf16, float32; the first run of each
+    # gives the pivot and the launch counts.
+    runs = {"float32": [], "bfloat16": []}
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        runs[dtype].append(phase(4, f"sg projection {dtype}", phase_project, dev,
+                                 models[dtype], dtype))
+    res = {}
+    for dtype, m in models.items():
+        (pivot, launches, _), (_, _, sg_again) = runs[dtype]
+        sg_s = runs[dtype][0][2]
+        phase(5, f"profile {dtype}", phase_profile, dev, m, sg_s, dtype)
+        res[dtype] = {"pivot": pivot, "launches": launches, "sg": (sg_s, sg_again)}
+    for dtype, m in models.items():
+        res[dtype]["mir"] = phase(6, f"mir projection {dtype}", phase_mir, dev, m, 4, dtype)
+    for dtype, m in models.items():
+        res[dtype]["tune"] = phase(7, f"stage-2 tuning {dtype}", phase_tune, dev, m,
+                                   res[dtype]["pivot"], 6, dtype)[0]
     phase(8, "probe tools", phase_tools, dev)
-    reg_s, rec_s = phase(9, "RotBbox tuning", phase_rotbbox, dev, model, pivot)
-    phase(10, "inversion CLI", phase_cli, dev)
-    log(f"median s/step after the second: sg {sg_s:.5f}, mir {mir_s:.5f}, "
-        f"stage-2 tune {tune_s:.5f}; RotBbox regularizer steps {reg_s:.5f}, reconstruction "
-        f"steps {rec_s:.5f}")
-    for k in kernels:  # launches on the inversion ('sg') path
-        k["launches"] = launches[k["name"]]
+    for dtype, m in models.items():
+        res[dtype]["rotbbox"] = phase(9, f"RotBbox tuning {dtype}", phase_rotbbox, dev, m,
+                                      res[dtype]["pivot"], 9, dtype)
+    for dtype in models:
+        phase(10, f"inversion CLI {dtype}", phase_cli, dev, dtype)
+    for dtype, r in res.items():
+        log(f"{dtype}: median s/step after the second: sg {r['sg'][0]:.5f} (in turns: "
+            f"{r['sg'][1]:.5f}), mir {r['mir']:.5f}, stage-2 tune {r['tune']:.5f}; RotBbox "
+            f"regularizer steps {r['rotbbox'][0]:.5f}, reconstruction steps {r['rotbbox'][1]:.5f}")
+    for k in kernels:  # launches on the inversion ('sg') path of the kernel's dtype
+        dtype = "bfloat16" if k["name"].endswith("_bf16") else "float32"
+        k["launches"] = res[dtype]["launches"][k["name"]]
     check([k["name"] for k in kernels] == list(_lib.KERNELS), "a kernel is missing from phase 2")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

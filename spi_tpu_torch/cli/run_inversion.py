@@ -3,15 +3,16 @@ spi_tpu/cli/run_inversion.py: the same flags, plus --device; the same
 output tree, npz keys and metric_log.txt).
 
     python -m spi_tpu_torch.cli.run_inversion --data_root D --output_root O \\
-        --eg3d_ckpt checkpoints/ffhqrebalanced512-128.npz --fp32 \\
+        --eg3d_ckpt checkpoints/ffhqrebalanced512-128.npz \\
         --first_inv_type mir --first_inv_steps 500 \\
         --G_1_type RotBbox --G_1_step 1000 \\
         --pt_rot_lambda 0.1 --pt_mirror_rot_lambda 0.05 --pt_depth_lambda 1
 
-Runs on the card (`--device cuda`, the default; raises without a GPU)
-or on the CPU with `--device cpu`. Not ported, each raising
-NotImplementedError: bfloat16 compute (run without --fp32),
---parallel_images above 1, --dataset_block auto and --save_video.
+Computes in bfloat16 (the generator's `compute_dtype`), as spi_tpu's CLI
+does, unless given --fp32. Runs on the card (`--device cuda`, the
+default; raises without a GPU) or on the CPU with `--device cpu`. Not
+ported, each raising NotImplementedError: --parallel_images above 1,
+--dataset_block auto and --save_video.
 """
 
 from __future__ import annotations
@@ -58,7 +59,8 @@ def parse_args(argv=None):
                         help="save the in-progress reconstruction every N tuning steps; 0 = off")
     parser.add_argument("--parallel_images", type=int, default=1)
     parser.add_argument("--fp32", action="store_true", default=False,
-                        help="float32 compute; required: bfloat16 is not ported")
+                        help="disable the bfloat16 compute path (slower, "
+                             "reference-exact numerics)")
     parser.add_argument("--tiny", action="store_true", default=False,
                         help="scaled-down generator (128^2, 4+4 depth samples) for smoke runs "
                              "and tests; the dataset is resized to match")
@@ -70,8 +72,6 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     unported = [
-        (not args.fp32, "bfloat16 compute (run without --fp32) is not ported: ROADMAP Queue 1, "
-                        "the next slice; pass --fp32"),
         (args.parallel_images > 1, "--parallel_images > 1 is not ported: ROADMAP Queue 1 "
                                    "item 10, scale-out"),
         (args.dataset_block == "auto", "--dataset_block auto is not ported: ROADMAP Queue 1 "
@@ -94,8 +94,9 @@ def main(argv=None):
     from spi_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
-    generator = TriPlaneGenerator(tiny_test_config() if args.tiny else ffhq512_128_config(),
-                                  device=dev, seed=0)
+    compute_dtype = "float32" if args.fp32 else "bfloat16"
+    config_fn = tiny_test_config if args.tiny else ffhq512_128_config
+    generator = TriPlaneGenerator(config_fn(compute_dtype=compute_dtype), device=dev, seed=0)
     perception = None
     if not args.random_init:
         load_flat_params(generator, load_npz(args.eg3d_ckpt))

@@ -5,7 +5,9 @@ Inputs in [-1, 1], bilinear-resized to 256 when larger; LPIPS
 shift/scale; VGG16 activations at relu1_2..relu5_3, unit-normalized
 over channels; squared difference -> 1x1 'lin' head -> spatial mean ->
 sum over layers, mean over the batch. Parameters: `net.features.*`
-and `lin.0`..`lin.4`, as in the JAX pytree.
+and `lin.0`..`lin.4`, as in the JAX pytree. `compute_dtype='bfloat16'`
+runs the VGG on bfloat16 copies of its weights and input and widens its
+features to float32 before they are normalized, as spi_tpu's LPIPS.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from spi_tpu_torch.models.perception.vgg import VGG16_CFG, VGGFeatures
 from spi_tpu_torch.models.stylegan2 import seeded_init
 from spi_tpu_torch.ops import resize_bilinear
 from spi_tpu_torch.utils.device import resolve_device
+from spi_tpu_torch.utils.params import cast_call
 
 _SHIFT = (-0.030, -0.088, -0.188)
 _SCALE = (0.458, 0.448, 0.450)
@@ -31,10 +34,14 @@ class LPIPS(nn.Module):
     tests. device: None means `cuda` (raises without a GPU)."""
 
     def __init__(self, max_size=256, cfg=VGG16_CFG, target_layers=(3, 8, 15, 22, 29),
-                 device=None, seed: int = 1):
+                 device=None, seed: int = 1, compute_dtype: str = "float32"):
         super().__init__()
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
+                             f"got {compute_dtype!r}")
         dev = resolve_device(device)
         self.max_size = max_size
+        self.compute_dtype = getattr(torch, compute_dtype)
         self.net = VGGFeatures(cfg=cfg, target_layers=target_layers, device=dev)
         self.lin = nn.ParameterList(
             [nn.Parameter(torch.empty(c, device=dev)) for c in self.net.out_channels()])
@@ -53,7 +60,8 @@ class LPIPS(nn.Module):
         if x.shape[-1] > self.max_size:
             x = resize_bilinear(x, (self.max_size, self.max_size))
         x = (x - self.shift) / self.scale
-        return [_normalize_activation(f) for f in self.net(x)]
+        feats = cast_call(self.net, self.compute_dtype, x.to(self.compute_dtype))
+        return [_normalize_activation(f.float()) for f in feats]
 
     def forward(self, x, y=None, mask=None, y_feats=None):
         """Distance summed over layers, averaged over the batch. mask:

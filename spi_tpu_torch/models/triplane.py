@@ -9,6 +9,14 @@ resolution; superresolution to the output resolution.
 Configurations are `TriPlaneConfig` values (`ffhq512_128_config`,
 `tiny_test_config`); `TriPlaneGenerator(cfg, device=...)` builds the
 module on its device, with weights drawn from `seed`.
+
+`compute_dtype='bfloat16'` runs the backbone synthesis, the decoder and
+the superresolution on bfloat16 copies of their parameters and buffers,
+made at each call (spi_tpu's `_cast`): the parameters stay float32 master
+weights and their gradients come back float32 through the casts. The
+mapping network, the ray and camera math, the plane gather's output (bf16
+planes times f32 weights give f32 features) and the compositing stay
+float32; every public output is float32 but the planes.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from spi_tpu_torch.models.rendering import ImportanceRenderer, RenderingOptions,
 from spi_tpu_torch.models.stylegan2 import FullyConnected, Generator, seeded_init
 from spi_tpu_torch.models.superresolution import Superresolution
 from spi_tpu_torch.utils.device import resolve_device
+from spi_tpu_torch.utils.params import cast_call
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +56,8 @@ class TriPlaneConfig:
     c_scale: float = 1.0
     channel_base: int = 32768
     channel_max: int = 512
+    # 'float32' or 'bfloat16' (spi_tpu's TriPlaneGenerator.compute_dtype).
+    compute_dtype: str = "float32"
 
 
 def ffhq512_128_config(**overrides) -> TriPlaneConfig:
@@ -118,8 +129,12 @@ class TriPlaneGenerator(nn.Module):
         super().__init__()
         if cfg.sr_noise_mode not in ("none", "const"):
             raise ValueError(f"sr_noise_mode {cfg.sr_noise_mode!r} is not supported")
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
+                             f"got {cfg.compute_dtype!r}")
         dev = resolve_device(device)
         self.cfg = cfg
+        self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.backbone = Generator(cfg.z_dim, cfg.c_dim, cfg.w_dim, cfg.backbone_resolution,
                                   cfg.plane_channels * 3, channel_base=cfg.channel_base,
                                   channel_max=cfg.channel_max, device=dev)
@@ -151,9 +166,19 @@ class TriPlaneGenerator(nn.Module):
         return self.backbone.mapping(z, c * self.cfg.c_scale, truncation_psi=truncation_psi,
                                      truncation_cutoff=truncation_cutoff)
 
+    def _decode(self, feats, dirs):
+        """The decoder on features cast to the compute dtype; rgb and sigma
+        back in float32 (spi_tpu's `decode`)."""
+        dt = self.compute_dtype
+        rgb, sigma = cast_call(self.decoder, dt, feats.to(dt), dirs)
+        return rgb.float(), sigma.float()
+
     def planes_nhwc(self, ws, noise_mode="const"):
-        """ws (N, num_ws, w_dim) -> planes (N, 3, H*W, plane_channels)."""
-        planes = self.backbone.synthesis(ws, noise_mode=noise_mode)  # (N, 96, H, W)
+        """ws (N, num_ws, w_dim) -> planes (N, 3, H*W, plane_channels), in
+        the compute dtype."""
+        dt = self.compute_dtype
+        planes = cast_call(self.backbone.synthesis, dt, ws.to(dt),
+                           noise_mode=noise_mode)  # (N, 96, H, W)
         n, _, h, w = planes.shape
         pc = self.cfg.plane_channels
         return planes.reshape(n, 3, pc, h, w).permute(0, 1, 3, 4, 2).reshape(n, 3, h * w, pc)
@@ -184,7 +209,7 @@ class TriPlaneGenerator(nn.Module):
         intrinsics = c[:, 16:25].reshape(-1, 3, 3)
         ray_origins, ray_directions = sample_rays(cam2world, intrinsics, res)
         feature_samples, depth_samples, _ = self.renderer(
-            planes, self.decoder, ray_origins, ray_directions, draws=draws,
+            planes, self._decode, ray_origins, ray_directions, draws=draws,
             generator=generator, rays_w=res,
         )
         feature_image = feature_samples.permute(0, 2, 1).reshape(n, feature_samples.shape[-1],
@@ -196,15 +221,19 @@ class TriPlaneGenerator(nn.Module):
             return out
         if ws.shape[0] != n:
             ws = ws.expand(n, *ws.shape[1:])
-        out["image"] = self.superresolution(rgb_image, feature_image, ws,
-                                            noise_mode=self.cfg.sr_noise_mode)
+        dt = self.compute_dtype
+        out["image"] = cast_call(self.superresolution, dt, rgb_image.to(dt),
+                                 feature_image.to(dt), ws.to(dt),
+                                 noise_mode=self.cfg.sr_noise_mode).float()
         return out
 
     def sample_mixed(self, ws, coordinates, directions, noise_mode="const", planes=None):
         """Colour features and density at arbitrary world points (N, M, 3)
         with directions (N, M, 3) (EG3D triplane.py:98-102), the TV loss's
         probe. planes: this generator's `planes_nhwc(ws)`, where the caller
-        has them; else computed. Returns (rgb (N, M, C), sigma (N, M, 1))."""
+        has them; else computed. Returns (rgb (N, M, C), sigma (N, M, 1)).
+        The decoder runs on its float32 weights here, as spi_tpu's
+        `sample_mixed` does, whatever the compute dtype of the planes."""
         if planes is None:
             planes = self.planes_nhwc(ws, noise_mode=noise_mode)
         return self.renderer.run_model(planes, self.decoder, coordinates, directions)

@@ -7,9 +7,12 @@ import torch.nn.functional as F
 
 def resize_bilinear(x, size: tuple[int, int], antialias: bool = False):
     """Bilinear resize of (N, C, H, W) to (N, C, *size), half-pixel centers
-    (align_corners=False)."""
-    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False,
-                         antialias=antialias)
+    (align_corners=False). Computed in float32 and returned in x's dtype:
+    PyTorch's CPU antialiased resize takes no bfloat16, and the card's and
+    the CPU's result should be one function."""
+    y = F.interpolate(x.float(), size=tuple(size), mode="bilinear", align_corners=False,
+                      antialias=antialias)
+    return y.to(x.dtype)
 
 
 def resize_area(x, size: tuple[int, int]):

@@ -3,7 +3,9 @@
 
 Expressed as one zero-upsample, one pad/crop and one depthwise strided
 convolution, as EG3D's `_upfirdn2d_ref` does. Filters are small float32
-tensors built by `setup_filter`.
+tensors built by `setup_filter`; the gain and the flip are folded into the
+filter in float32, and the result is cast to x's dtype, as spi_tpu does
+(so a bfloat16 x is filtered by bfloat16 taps).
 """
 
 from __future__ import annotations
@@ -78,8 +80,8 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1.0):
     downx, downy = _parse_scaling(down)
     padx0, padx1, pady0, pady1 = _parse_padding(padding)
     if f is None:
-        f = torch.ones(1, 1, dtype=x.dtype, device=x.device)
-    f = f.to(device=x.device, dtype=x.dtype)
+        f = torch.ones(1, 1, device=x.device)
+    f = f.to(device=x.device, dtype=torch.float32)
     if f.ndim == 1:
         f = torch.outer(f, f)
     n, c, h, w = x.shape
@@ -99,7 +101,7 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1.0):
     f = f * gain
     if not flip_filter:
         f = f.flip([0, 1])
-    weight = f[None, None].repeat(c, 1, 1, 1)
+    weight = f.to(x.dtype)[None, None].repeat(c, 1, 1, 1)
     return F.conv2d(x, weight, stride=(downy, downx), groups=c)
 
 

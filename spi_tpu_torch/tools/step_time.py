@@ -1,18 +1,20 @@
 """Wall-clock seconds per inversion step at ffhq512_128_config width on the card.
 
     python -m spi_tpu_torch.tools.step_time [--mode sg|sgw+|mir|tune|rotbbox] [--steps N]
+        [--dtype float32|bfloat16]
     PYTHONPATH=<checkout> python spi_tpu_torch/tools/step_time.py --mode sg
 
-Builds the generator at its published widths with random seeded weights,
-LPIPS-VGG16 and a random 512^2 target, runs N steps of one stage-1
-projector mode ('mir' from a camera yawed by MIR_YAW) or of stage 2 from
-the pivot of PIVOT_STEPS 'sg' steps (float32, TF32 off): 'tune' is
-recon-only, 'rotbbox' SPI's RotBbox request (rot 0.1, mirror-rot 0.05,
-depth 1) from the yawed camera with a synthetic face mask and
-landmarks. It prints one line: the median s/step after the second step,
-every step's time, and the peak device memory. `chip_smoke.py` times the
-same workload through `build_model`, `projection`, `tuning`, `rotbbox`
-and `time_steps`.
+Builds the generator at its published widths with random seeded weights
+and the compute dtype `--dtype` (float32 by default; the CLI's default
+is bfloat16), LPIPS-VGG16 (float32, as the CLI's) and a random 512^2
+target, runs N steps of one stage-1 projector mode ('mir' from a camera
+yawed by MIR_YAW) or of stage 2 from the pivot of PIVOT_STEPS 'sg' steps
+(TF32 off): 'tune' is recon-only, 'rotbbox' SPI's RotBbox request (rot
+0.1, mirror-rot 0.05, depth 1) from the yawed camera with a synthetic
+face mask and landmarks. It prints one line: the median s/step after
+the second step, every step's time, and the peak device memory.
+`chip_smoke.py` times the same workload through `build_model`,
+`projection`, `tuning`, `rotbbox` and `time_steps`.
 Run as a file (the second form), it imports `spi_tpu_torch` from
 PYTHONPATH, so it times another checkout's package on the same card
 ('sg' only where that tree has no other mode).
@@ -36,14 +38,16 @@ MIR_YAW = 0.4
 PIVOT_STEPS = 8
 
 
-def build_model(dev):
-    """ffhq512_128_config at its published widths, random seeded weights;
-    LPIPS-VGG16; a random 512^2 target; the canonical camera."""
+def build_model(dev, dtype="float32"):
+    """ffhq512_128_config at its published widths and compute dtype
+    `dtype`, random seeded weights; LPIPS-VGG16; a random 512^2 target;
+    the canonical camera."""
     from spi_tpu_torch.criteria.lpips import LPIPS
     from spi_tpu_torch.models import TriPlaneGenerator, ffhq512_128_config
     from spi_tpu_torch.utils import camera as cam
 
-    g = TriPlaneGenerator(ffhq512_128_config(), device=dev, seed=WEIGHT_SEED)
+    g = TriPlaneGenerator(ffhq512_128_config(compute_dtype=dtype), device=dev,
+                          seed=WEIGHT_SEED)
     lpips = LPIPS(device=dev)
     res = g.cfg.img_resolution
     target = torch.tanh(torch.randn(1, 3, res, res, device=dev,
@@ -149,6 +153,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="sg", choices=("sg", "sgw+", "mir", "tune", "rotbbox"))
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="the generator's compute dtype")
     args = ap.parse_args(argv)
 
     import spi_tpu_torch
@@ -157,14 +163,15 @@ def main(argv=None):
     dev = resolve_device(torch.device("cuda", 0))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = build_model(dev)
+    model = build_model(dev, args.dtype)
     if args.mode in ("tune", "rotbbox"):
         w, noise, _ = time_steps(projection(model, "sg", PIVOT_STEPS, dev))[0]
         fn = (tuning if args.mode == "tune" else rotbbox)(model, (w, noise), args.steps, dev)
     else:
         fn = projection(model, args.mode, args.steps, dev)
     _, _, step_s, peak = time_steps(fn)
-    print(f"{args.mode} ({spi_tpu_torch.__file__}, {torch.cuda.get_device_name(dev)}): median "
+    print(f"{args.mode} {args.dtype} ({spi_tpu_torch.__file__}, "
+          f"{torch.cuda.get_device_name(dev)}): median "
           f"{steady_s(step_s):.5f} s/step after the second; steps "
           f"{[round(t, 5) for t in step_s]}; peak {peak / 2**30:.3f} GiB", flush=True)
 

@@ -64,6 +64,9 @@ class PipelineConfig:
     # Save the in-progress reconstruction every N tuning steps
     # (global_config.py:7, rot_bbox_cx_coach.py:153-154); 0 = off.
     log_snapshot: int = 0
+    # Compute dtype of the loss LPIPS's VGG (the generator's lives on its
+    # config); the metric's LPIPS stays float32, as spi_tpu's Metric.
+    lpips_compute_dtype: str = "float32"
 
     @property
     def coach_name(self) -> str:
@@ -98,8 +101,8 @@ class InversionPipeline:
     """generator: on `device`, holding the pretrained (or seeded random)
     weights. perception: an optional flat perception bundle ('lpips.*',
     'boxcx.*', 'metric.*' keys, pipeline.py:108-125); a section it lacks
-    keeps its seeded weights, and without a 'metric' section the metric
-    shares the losses' LPIPS. device: None means `cuda` (raises without a
+    keeps its seeded weights, and without a 'metric' section the metric's
+    float32 LPIPS takes the losses' LPIPS weights. device: None means `cuda` (raises without a
     GPU)."""
 
     def __init__(self, generator: TriPlaneGenerator, config: PipelineConfig,
@@ -113,14 +116,17 @@ class InversionPipeline:
         self.g_state0 = {k: v.detach().clone() for k, v in generator.state_dict().items()}
         sections = split_perception(perception or {})
         dev, seed = self.device, config.seed
-        self.lpips = LPIPS(device=dev, seed=seed + 1)
+        self.lpips = LPIPS(device=dev, seed=seed + 1, compute_dtype=config.lpips_compute_dtype)
         self.box_cx = BoxCXLoss(device=dev, seed=seed + 2)
-        metric_lpips = LPIPS(device=dev, seed=seed + 1) if "metric" in sections else self.lpips
-        self.metric = Metric(metric_lpips, IDLoss(device=dev, seed=seed + 3))
-        for section, module in (("lpips", self.lpips), ("boxcx", self.box_cx),
-                                ("metric", self.metric)):
+        # The metric's LPIPS is float32 (spi_tpu's Metric) and holds the
+        # losses' LPIPS weights unless the bundle has a 'metric' section.
+        self.metric = Metric(LPIPS(device=dev, seed=seed + 1), IDLoss(device=dev, seed=seed + 3))
+        for section, module in (("lpips", self.lpips), ("boxcx", self.box_cx)):
             if section in sections:
                 load_flat_params(module, sections[section])
+        self.metric.lpips.load_state_dict(self.lpips.state_dict())
+        if "metric" in sections:
+            load_flat_params(self.metric, sections["metric"])
         self.metric_log = MetricLog()
         self.dirs = config.dirs()
         for d in self.dirs.values():

@@ -9,6 +9,7 @@ their dotted names, which equal the JAX package's pytree paths
 from __future__ import annotations
 
 import contextlib
+import itertools
 
 import torch
 from torch import nn
@@ -54,3 +55,17 @@ def trainable_parameters(module: nn.Module) -> dict[str, nn.Parameter]:
     `noise_const` and `w_avg` buffers (base_coach.py:132-135). In the port
     those are buffers, not parameters, so this is every parameter."""
     return dict(module.named_parameters())
+
+
+def cast_call(module: nn.Module, dtype: torch.dtype, *args, **kwargs):
+    """`module(*args, **kwargs)` on copies of its floating parameters and
+    buffers cast to `dtype` (spi_tpu's `_cast` of a parameter subtree): the
+    module keeps its float32 master weights, and their gradients come back
+    float32 through the casts. The buffers read are those in place at the
+    call, so noise maps swapped in by `replace_noise` are cast too.
+    float32 calls the module as it is."""
+    if dtype == torch.float32:
+        return module(*args, **kwargs)
+    tensors = {k: v.to(dtype) if v.is_floating_point() else v
+               for k, v in itertools.chain(module.named_parameters(), module.named_buffers())}
+    return torch.func.functional_call(module, tensors, args, kwargs)

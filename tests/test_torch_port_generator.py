@@ -42,6 +42,7 @@ from spi_tpu_torch.models.rendering.ray_sampler import sample_rays as p_sample_r
 from spi_tpu_torch.utils import camera as pcam
 from spi_tpu_torch.utils.checkpoint import load_flat_params, load_npz
 from spi_tpu_torch.utils.params import extract_noise, replace_noise
+from torch_threads import few_torch_threads  # noqa: F401
 
 
 def _rand(*shape, seed=0, scale=1.0):

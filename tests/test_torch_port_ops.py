@@ -28,6 +28,7 @@ from spi_tpu_torch import ops
 from spi_tpu_torch.ops import plane_splat as psplat
 from spi_tpu_torch.ops.bias_act import activation_funcs, bias_act_plain
 from spi_tpu_torch.models.rendering import renderer as PR
+from torch_threads import few_torch_threads  # noqa: F401
 
 ACTS = sorted(activation_funcs)
 BINOMIAL = [1.0, 3.0, 3.0, 1.0]

@@ -44,6 +44,7 @@ from spi_tpu_torch.models.perception.arcface import IRSE50
 from spi_tpu_torch.models.perception.vgg import VGG19_CFG, VGGFeatures
 from spi_tpu_torch.utils import metrics as pmetrics
 from spi_tpu_torch.utils.checkpoint import load_flat_params
+from torch_threads import few_torch_threads  # noqa: F401
 
 SMALL_VGG = dict(cfg=(8, "M", 16, "M", 16), target_layers=(1, 4, 7))
 

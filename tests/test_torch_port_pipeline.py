@@ -33,6 +33,7 @@ from spi_tpu_torch.models import TriPlaneGenerator, tiny_test_config
 from spi_tpu_torch.training.pipeline import InversionPipeline, PipelineConfig
 from spi_tpu_torch.utils.checkpoint import split_perception
 from spi_tpu_torch.utils.params import extract_noise
+from torch_threads import few_torch_threads  # noqa: F401
 
 _TOOLS = os.path.join(os.path.dirname(__file__), "..", "tools")
 
@@ -215,7 +216,7 @@ def test_perception_bundle_sections():
         split_perception({"vgg.features.0.weight": 0})
 
 
-@pytest.mark.parametrize("flag", [[], ["--fp32", "--parallel_images", "2"],
+@pytest.mark.parametrize("flag", [["--fp32", "--parallel_images", "2"],
                                   ["--fp32", "--dataset_block", "auto"],
                                   ["--fp32", "--save_video"]])
 def test_unported_flags_raise(flag):

@@ -40,6 +40,7 @@ from spi_tpu_torch.tools import (
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tools"))
 import probe_winscatter_r5 as jwin  # noqa: E402  (imports bench_util from tools/)
+from torch_threads import few_torch_threads  # noqa: F401
 
 
 def _t(a):

@@ -28,6 +28,7 @@ from spi_tpu_torch.models import TriPlaneGenerator, tiny_test_config
 from spi_tpu_torch.training import projectors as PP
 from spi_tpu_torch.utils.checkpoint import load_flat_params
 from spi_tpu_torch.utils.params import extract_noise
+from torch_threads import few_torch_threads  # noqa: F401
 
 SMALL_VGG = dict(cfg=(8, "M", 16, "M", 16), target_layers=(1, 4, 7))
 

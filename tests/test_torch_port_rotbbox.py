@@ -61,6 +61,7 @@ from spi_tpu_torch.utils import camera as pcam
 from spi_tpu_torch.utils import rotate as prot
 from spi_tpu_torch.utils.checkpoint import load_flat_params
 from spi_tpu_torch.utils.params import trainable_parameters
+from torch_threads import few_torch_threads  # noqa: F401
 
 SMALL_VGG = dict(cfg=(8, "M", 16, "M", 16), target_layers=(1, 4, 7))
 
