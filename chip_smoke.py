@@ -35,12 +35,28 @@ Phases (any failure exits non-zero):
  10. the inversion CLI end to end at full width on a synthetic identity
      written under build/ (both stages, SPI's RotBbox weights), its output
      tree, and a second run that reuses the first one's embedding: with
-     --fp32, then without it (bfloat16, the CLI's default).
+     --fp32, then without it (bfloat16, the CLI's default);
+ 11. preprocess at full width, float32: FAN (4 hourglass modules, 256^2),
+     the ResNet-50 3DMM regressor (224^2, nonzero random heads) and BiSeNet
+     (512^2), seeded random weights, each on the card against the CPU and
+     timed; then cli/run_preprocess.py --random_init --mirror on one
+     synthetic 640^2 photo (no failure allowed) and its crop/ c/ lm/ mask/
+     tree;
+ 12. the user's path on that tree in bfloat16: the inversion CLI with
+     --save_video (3 'mir' + 5 RotBbox steps), then cli/run_video.py with 8
+     frames and a 128^3 shape export on the checkpoint it wrote: the video
+     files, 8 finite 512^2 frames, a non-empty mesh and PLY, the frames a
+     second and the shape's seconds (device probes, host marching
+     tetrahedra), and the launches of one orbit chunk and one probe chunk;
+ 13. the benchmark line (spi_tpu_torch/tools/bench.py, bfloat16, the
+     pipeline sample cut to 4 'mir' + 8 RotBbox steps): bench.py's metric
+     string and finite positive numbers; the launches of one stage-1 step
+     and one stage-2 cadence.
 Phase 3 also holds one tiny_test_config RotBbox step (all four
 regularizers, the mirror term on) on the card against the CPU: its LPIPS
 and every weight gradient, in both dtypes.
 
-Each path (phases 3, 4, 6, 7, 9, 10 and each tool) runs with the launch
+Each path (phases 3, 4, 6, 7, 9, 10, 12, 13 and each tool) runs with the launch
 counts set to 0 just before it and fails unless each kernel it is meant
 to launch was launched: a bfloat16 path the bias_act kernels' bf16 forms.
 Prints the card's name and power limit, one `{"kernels": [...]}` line
@@ -71,6 +87,10 @@ TOL_SYNTH = 1e-3     # relative to max |ref|: card vs CPU, other summation order
 # y + lambda alpha), dx is also taken within TOL_SATURATED_DX * |g| * gain:
 # there a few f32 ulps of y become many bf16 ulps of a small dx.
 TOL_BF16_ULP = 1.0
+# bias_act's inputs set x + b to exactly 0 along this row (every channel of
+# the first element of dim 0, at position 0 of the trailing dims), so that
+# act'(0) is compared: (0, :, 0, 0) of an NCHW tensor, (0, :) of (N, C).
+KINK_ROW = (0, slice(None), 0, 0)
 TOL_SATURATED_DX = 1e-5
 SATURATING = ("tanh", "sigmoid", "elu", "selu")
 # bf16 end to end, card vs CPU (as the CPU tests hold the port's bf16 to
@@ -121,7 +141,6 @@ kernel, saved, timing_path = sys.argv[1:4]
 spec = importlib.util.spec_from_file_location("timing", timing_path)
 timing = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(timing)
-torch.backends.cuda.matmul.allow_tf32 = False
 if kernel == "plane_splat":
     from spi_tpu_torch.ops import plane_splat as mod
     takes_geom = "geom" in inspect.signature(mod.splat_cuda).parameters
@@ -300,6 +319,7 @@ def phase_bias_act(dev):
     for label, (shape, dim) in shapes.items():
         x = torch.randn(*shape, device=dev, generator=gen) * 3.0
         b = torch.randn(shape[dim], device=dev, generator=gen)
+        x[KINK_ROW[:x.ndim]] = -b  # one row of channels with x + b exactly 0
         g = torch.randn(*shape, device=dev, generator=gen)
         for act in sorted(activation_funcs):
             spec = activation_funcs[act]
@@ -315,18 +335,13 @@ def phase_bias_act(dev):
             # clamp, the two versions may round to opposite sides of it
             # and so keep or zero that element's gradient: such elements
             # are left out of the backward's comparison and counted.
-            # Likewise, for relu and selu only, where x + b is exactly 0:
-            # at that kink the kernel takes act'(0) by the TPU kernel's
-            # rule (the x >= 0 branch), the plain version spi_tpu's
-            # impl='xla' rule (the other branch). lrelu takes the x >= 0
-            # branch in both.
+            # Where x + b is exactly 0, both take act'(0) of spi_tpu's
+            # impl='xla' path (relu 0, selu lambda alpha), and are compared.
             pre = bias_act_plain(x, b, dim=dim, act=act, gain=1.7)  # before the clamp
             near = (pre.abs() - 2.5).abs() <= 1e-6
-            if act in ("relu", "selu"):
-                near |= bias_act_plain(x, b, dim=dim) == 0
             del pre
             n_near = int(near.sum())
-            check(n_near <= 1e-4 * x.numel(), f"{n_near} elements at the clamp or kink for {act}")
+            check(n_near <= 1e-4 * x.numel(), f"{n_near} elements at the clamp for {act}")
             errs = {}
             for name, a, r in (("bias_act_fwd", y, yr),
                                ("bias_act_bwd", dx.masked_fill(near, 0), dxr.masked_fill(near, 0))):
@@ -336,7 +351,7 @@ def phase_bias_act(dev):
                 check(excess <= 0, f"{name} {act} at {label} disagrees: "
                       f"max abs err {errs[name]:.3e}")
             log(f"bias_act {act:8s} {label:8s} {tuple(shape)}: fwd err {errs['bias_act_fwd']:.2e}, "
-                f"bwd err {errs['bias_act_bwd']:.2e} ({n_near} elements at the clamp or kink left out)")
+                f"bwd err {errs['bias_act_bwd']:.2e} ({n_near} elements at the clamp left out)")
         # Times with the main path's activation (lrelu, gain sqrt 2, clamp 256 * sqrt 2).
         spec = activation_funcs["lrelu"]
         cfg = (dim, spec.cuda_id, spec.def_alpha, spec.def_gain, 256.0 * spec.def_gain)
@@ -427,6 +442,7 @@ def phase_bias_act_bf16(dev):
     for label, (shape, dim, offset) in cases.items():
         x, g = randn(shape, offset, 3.0), randn(shape, offset)
         b = randn((shape[dim],))
+        x[KINK_ROW[:x.ndim]] = -b  # one row of channels with x + b exactly 0
         if label == "unaligned":
             check(x.data_ptr() % 16 != 0 and g.data_ptr() % 16 != 0, "unaligned case is aligned")
         if label == "tail":
@@ -1017,18 +1033,12 @@ KINDS = (
 )
 
 
-def profile_step(label, fn, wait, steady_s, of_what):
-    """Run the workload `fn(on_step)` under torch.profiler and keep its step
-    number `wait` + 1 (after `wait` steps and one warm-up step): device time
-    by kernel and by kind, and its share of `steady_s`, an unprofiled step
-    time (the profiler's own overhead stretches the profiled step's wall
-    time)."""
+def device_kernels(prof):
+    """{kernel name: (device ms, launches)} of a torch.profiler run: the
+    events on the card with device time, less user annotations and the
+    profiler's own step markers. Fails where there is none."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=wait, warmup=1, active=1)) as prof:
-        fn(lambda step, value: prof.step())
     per_kernel = {}
     for evt in prof.key_averages():
         t = getattr(evt, "self_device_time_total", None)
@@ -1039,6 +1049,21 @@ def profile_step(label, fn, wait, steady_s, of_what):
                 and "#" not in evt.key and not evt.key.startswith("ProfilerStep")):
             per_kernel[evt.key] = (t / 1e3, evt.count)
     check(per_kernel, "the profiler saw no device time")
+    return per_kernel
+
+
+def profile_step(label, fn, wait, steady_s, of_what):
+    """Run the workload `fn(on_step)` under torch.profiler and keep its step
+    number `wait` + 1 (after `wait` steps and one warm-up step): device time
+    by kernel and by kind, and its share of `steady_s`, an unprofiled step
+    time (the profiler's own overhead stretches the profiled step's wall
+    time)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=wait, warmup=1, active=1)) as prof:
+        fn(lambda step, value: prof.step())
+    per_kernel = device_kernels(prof)
     total = sum(t for t, _ in per_kernel.values())
     kinds = {}
     for name, (t, _) in per_kernel.items():
@@ -1256,6 +1281,253 @@ def phase_cli(dev, dtype, first_steps=3, tune_steps=5):
         f"written; the second run reused the embedding in {time.perf_counter() - t0:.1f} s")
 
 
+def profiled_device_ms(fn):
+    """Device time (ms, summed over its kernels by torch.profiler) and
+    kernel launches of one call of `fn`. For a network of hundreds of
+    launches, whose enqueueing fills the launch queue that timing.device_ms
+    would hide behind its sleep."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per_kernel = device_kernels(prof)
+    return sum(t for t, _ in per_kernel.values()), sum(n for _, n in per_kernel.values())
+
+
+def phase_preprocess(dev):
+    """The three preprocess networks at full width (FAN with 4 hourglass
+    modules at 256^2, the ResNet-50 at 224^2 with nonzero random heads,
+    BiSeNet at 512^2), seeded random weights, float32: on the card against
+    the same module on the CPU within TOL_SYNTH of the largest entry (the
+    parsing map equal wherever the top two logits lie more than that
+    apart), and each forward timed on the card: back-to-back, and its
+    device time and launches under the profiler. Then `cli/run_preprocess.py
+    --random_init --mirror` on one synthetic 640^2 photo: it fails on any
+    failure `run_total` reports, and on a file of the tree missing or of
+    the wrong shape. Returns the tree's root."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from spi_tpu_torch.cli import run_preprocess
+    from spi_tpu_torch.models.perception.bisenet import BiSeNet, parse_logits
+    from spi_tpu_torch.models.perception.face_recon import FaceReconNet
+    from spi_tpu_torch.models.perception.fan import FAN
+    from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.preprocess.pipeline import PreprocessModels, run_total
+    from spi_tpu_torch.tools.step_time import write_photo
+
+    def recon_with_heads(device):
+        net = FaceReconNet(device=device, seed=1)
+        gen = torch.Generator().manual_seed(11)
+        with torch.no_grad():
+            for head in net.final_layers.values():
+                head.weight.copy_(torch.randn(head.weight.shape, generator=gen) * 1e-3)
+                head.bias.copy_(torch.randn(head.bias.shape, generator=gen) * 0.1)
+        return net
+
+    nets = {"FAN (4 modules)": (lambda d: FAN(device=d, seed=0), 256, lambda n, x: n(x)),
+            "ResNet-50 3DMM": (recon_with_heads, 224, lambda n, x: n(x)),
+            "BiSeNet": (lambda d: BiSeNet(device=d, seed=2), 512, parse_logits)}
+    for label, (make, size, run) in nets.items():
+        x = torch.rand(1, 3, size, size, generator=torch.Generator().manual_seed(size))
+        xd = x.to(dev)
+        with torch.no_grad():
+            card_net = make(dev)
+            got = run(card_net, xd)
+            want = run(make("cpu"), x)
+            ms = time_ms(lambda: run(card_net, xd))
+            dms, launches = profiled_device_ms(lambda: run(card_net, xd))
+        err = rel_err(got.cpu(), want)
+        log(f"{label} at {size}^2: card vs CPU {err:.2e} of the largest entry; forward "
+            f"{ms:.3f} ms on the card back-to-back, {dms:.3f} ms of device time in "
+            f"{launches} kernel launches (profiled)")
+        check(bool(torch.isfinite(got).all()) and err <= TOL_SYNTH, f"{label} disagrees: {err:.3e}")
+        if label == "BiSeNet":
+            top2 = want.topk(2, dim=1).values
+            clear = (top2[:, 0] - top2[:, 1]) > TOL_SYNTH * float(want.abs().max())
+            same = got.argmax(1).cpu() == want.argmax(1)
+            check(bool(same[clear].all()), "BiSeNet's parsing map differs where the logits are clear")
+        del card_net, got
+
+    root = Path(__file__).resolve().parent / "build" / "preprocess_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "raw").mkdir(parents=True)
+    write_photo(root / "raw" / "face0.png")
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    done, failures = run_preprocess.main(["--input_dir", str(root / "raw"), "--output_dir",
+                                          str(root / "data"), "--random_init", "--mirror",
+                                          "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    log(f"run_preprocess: {done} done, failures {failures}, {wall:.2f} s with the models' build; "
+        f"launches {dict((k, v) for k, v in _lib.launch_counts.items() if v)}")
+    check(done == ["face0"] and not failures, f"run_preprocess failed: {failures}")
+    data = root / "data"
+    for sub in ("crop/face0/target.jpg", "crop/face0/target_m.jpg"):
+        check(Image.open(data / sub).size == (512, 512), f"preprocess wrote no 512^2 {sub}")
+    for sub, shape in (("c/face0/target.npy", (25,)), ("c/face0/target_m.npy", (25,)),
+                       ("lm/face0/target.npy", (68, 2)), ("mask/face0/target.npy", (512, 512))):
+        a = np.load(data / sub)
+        check(a.shape == shape and bool(np.isfinite(a).all()), f"preprocess {sub}: {a.shape}")
+    check(int(np.load(data / "mask/face0/target.npy").max()) < 19, "parsing ids of 19 or more")
+    models = PreprocessModels.random_init(dev)
+    run_total(str(root / "raw"), str(root / "again"), models, mirror=True, verbose=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, failures = run_total(str(root / "raw"), str(root / "again"), models, mirror=True,
+                            verbose=False)
+    log(f"run_total, one 640^2 photo with the models built and warm: "
+        f"{time.perf_counter() - t0:.3f} s; failures {failures}")
+    check(not failures, f"run_total failed: {failures}")
+    return data
+
+
+def phase_user_path(dev, data, first_steps=3, tune_steps=5):
+    """The user's path on phase 11's tree in bfloat16 (the CLI's default):
+    `cli/run_inversion.py --save_video` (SPI's RotBbox weights), then
+    `cli/run_video.py --frames 8 --shape ... --shape_resolution 128` on the
+    checkpoint it wrote. Checks the video files, the frames (8 of 512^2,
+    the orbit's float images finite) and the mesh; counts the kernels'
+    launches of each run, of one orbit chunk of 4 frames and of one
+    density-probe chunk (each net of the planes' pass)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from spi_tpu_torch.cli import run_inversion, run_video
+    from spi_tpu_torch.models import TriPlaneGenerator, ffhq512_128_config
+    from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.utils.checkpoint import load_flat_params, load_npz
+    from spi_tpu_torch.utils.shape import sample_density_grid
+    from spi_tpu_torch.utils.video import render_orbit_images
+
+    out = data.parent / "out"
+    argv = ["--data_root", str(data), "--data_mode", "jpg", "--output_root", str(out),
+            "--device", str(dev), "--random_init", "--save_video",
+            "--first_inv_type", "mir", "--first_inv_steps", str(first_steps),
+            "--G_1_type", "RotBbox", "--G_1_step", str(tune_steps), "--pt_rot_lambda", "0.1",
+            "--pt_mirror_rot_lambda", "0.05", "--pt_depth_lambda", "1",
+            "--LPIPS_value_threshold", "-1"]
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    (r,) = run_inversion.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.launch_counts)
+    log(f"cli --save_video on the preprocessed tree: {wall:.1f} s (stage 1 {r['stage1_s']:.2f}, "
+        f"stage 2 {r['stage2_s']:.2f}); video {r['video']}; launches {launches}")
+    for k in BF16_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was never launched on the cli --save_video path")
+    check(r["steps_run"] == tune_steps and all(math.isfinite(v) for v in r["metrics"].values()),
+          f"cli results {r}")
+    check(os.path.exists(r["video"]) and os.path.getsize(r["video"]) > 0, "no orbit video")
+
+    (coach,) = os.listdir(out / "checkpoints")
+    ckpt = out / "checkpoints" / coach / "face0.npz"
+    ply = out / "face0.ply"
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_video.main(["--checkpoint", str(ckpt), "--output", str(out / "face0.mp4"),
+                          "--frames", "8", "--shape", str(ply), "--shape_resolution", "128",
+                          "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.launch_counts)
+    log(f"run_video: {wall:.2f} s in all; 8 frames rendered in {res['render_s']:.3f} s "
+        f"({8 / res['render_s']:.2f} frames/s) -> {res['video']}; shape 128^3: density probes "
+        f"{res['probe_s']:.3f} s, marching tetrahedra and PLY {res['mesh_s']:.3f} s, "
+        f"{len(res['verts'])} vertices, {len(res['faces'])} faces; launches {launches}")
+    for k in ("bias_act_fwd", "bias_act_fwd_bf16"):
+        check(launches[k] > 0, f"kernel {k} was never launched by run_video")
+    check(res["frames"].shape == (8, 512, 512, 3) and os.path.exists(res["video"]),
+          f"run_video frames {res['frames'].shape}, video {res['video']}")
+    check(len(res["verts"]) > 0 and len(res["faces"]) > 0 and ply.stat().st_size > 0,
+          "the shape export wrote an empty mesh")
+
+    # One chunk's and one probe chunk's launches, net of the planes' pass,
+    # and the orbit's float images.
+    g = TriPlaneGenerator(ffhq512_128_config(compute_dtype="bfloat16"), device=dev)
+    flat = load_npz(str(ckpt))
+    load_flat_params(g, {k[2:]: v for k, v in flat.items() if k.startswith("G.")})
+    w = torch.from_numpy(flat["w"]).to(dev)
+    counts = {}
+    with torch.no_grad():
+        for label, fn in (("planes", lambda: g.planes_nhwc(w)),
+                          ("orbit chunk", lambda: render_orbit_images(g, w, num_frames=4)),
+                          ("probe chunk", lambda: sample_density_grid(g, w, resolution=40))):
+            _lib.reset_launch_counts()
+            out_t = fn()
+            torch.cuda.synchronize()
+            counts[label] = {k: v for k, v in _lib.launch_counts.items() if v}
+            if label == "orbit chunk":
+                check(out_t.shape == (4, 3, 512, 512) and bool(torch.isfinite(out_t).all()),
+                      "the orbit's images are not finite 512^2 frames")
+    for label, what in (("orbit chunk", "4 frames"), ("probe chunk", "64,000 points")):
+        net = {k: v - counts["planes"].get(k, 0) for k, v in counts[label].items()}
+        log(f"launches of one {label} ({what}), net of the planes' pass "
+            f"{counts['planes']}: {net}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render_orbit_images(g, w, num_frames=16)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    log(f"orbit, 16 frames with the generator warm: {warm:.3f} s ({16 / warm:.2f} frames/s)")
+    return res
+
+
+def phase_bench(dev, s1_steps=4, s2_steps=8):
+    """`python -m spi_tpu_torch.tools.bench` in bfloat16 with a shortened
+    pipeline sample, in this process: its last line is one JSON object with
+    bench.py's metric string and finite positive times. Then the launches
+    of one stage-1 step and of one stage-2 cadence (steps 1-4, the fourth
+    a regularizer step), read between the steps' `on_step` calls so that
+    the loops' set-up stays out."""
+    import contextlib
+    import io
+    import re
+    from pathlib import Path
+
+    from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.tools import bench
+    from spi_tpu_torch.tools.step_time import build_model
+
+    metric = re.search(r'"metric": "([^"]+)"',
+                       (Path(__file__).resolve().parent / "bench.py").read_text()).group(1)
+    buf = io.StringIO()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        bench.main(["--dtype", "bfloat16", "--s1_steps", str(s1_steps),
+                    "--s2_steps", str(s2_steps)])
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    log(text.rstrip())
+    launches = dict(_lib.launch_counts)
+    line = json.loads(text.strip().splitlines()[-1])
+    log(f"bench: {wall:.1f} s; launches {launches}")
+    check(line["metric"] == metric, f"bench metric {line['metric']!r} is not bench.py's")
+    check("vs_baseline" not in line and line["unit"] == "s", f"bench line {line}")
+    d = line["detail"]
+    nums = [line["value"], d["stage1_s_per_step"], d["stage2_s_per_step"], d["pipeline_scaled_s"]]
+    check(all(math.isfinite(v) and v > 0 for v in nums), f"bench numbers {nums}")
+    for k in BF16_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was never launched by the benchmark")
+    model = build_model(dev, "bfloat16", lpips_dtype="bfloat16")
+    for label, workload, n in (("stage-1 step", bench.stage1, 1),
+                               ("stage-2 cadence", bench.stage2, 4)):
+        snaps = []
+        workload(model, n + 1, dev)(lambda step, value: snaps.append(dict(_lib.launch_counts)))
+        per = {k: snaps[-1][k] - snaps[0][k] for k in snaps[0] if snaps[-1][k] > snaps[0][k]}
+        log(f"bench launches of one {label} (step{'s 1-4' if n > 1 else ' 1'}): {per}")
+    return line
+
+
 def phase_tools(dev):
     """Each probe tool's run, once, with the launch counts at 0 before it;
     fails where a tool's own check of its kernel against the plain version
@@ -1300,10 +1572,9 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.utils.device import resolve_device
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
+    dev = resolve_device(torch.device("cuda", 0))  # TF32 off, as every entry point
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     def phase(n, what, fn, *args):
@@ -1346,6 +1617,12 @@ def main(argv=None) -> int:
                                       res[dtype]["pivot"], 9, dtype)
     for dtype in models:
         phase(10, f"inversion CLI {dtype}", phase_cli, dev, dtype)
+    del models, model, runs
+    torch.cuda.empty_cache()
+    data = phase(11, "preprocess", phase_preprocess, dev)
+    phase(12, "inversion --save_video and run_video on the preprocessed tree",
+          phase_user_path, dev, data)
+    phase(13, "benchmark line", phase_bench, dev)
     for dtype, r in res.items():
         log(f"{dtype}: median s/step after the second: sg {r['sg'][0]:.5f} (in turns: "
             f"{r['sg'][1]:.5f}), mir {r['mir']:.5f}, stage-2 tune {r['tune']:.5f}; RotBbox "
@@ -1355,9 +1632,9 @@ def main(argv=None) -> int:
         k["launches"] = res[dtype]["launches"][k["name"]]
     check([k["name"] for k in kernels] == list(_lib.KERNELS), "a kernel is missing from phase 2")
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    from spi_tpu_torch.tools.bench import card_label
+
+    print(card_label(dev))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

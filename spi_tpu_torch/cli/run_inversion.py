@@ -11,8 +11,9 @@ output tree, npz keys and metric_log.txt).
 Computes in bfloat16 (the generator's `compute_dtype`), as spi_tpu's CLI
 does, unless given --fp32. Runs on the card (`--device cuda`, the
 default; raises without a GPU) or on the CPU with `--device cpu`. Not
-ported, each raising NotImplementedError: --parallel_images above 1,
---dataset_block auto and --save_video.
+ported, each raising NotImplementedError: --parallel_images above 1 and
+--dataset_block auto. --save_video renders each tuned generator's orbit
+video into video/<coach>/ (spi_tpu_torch.utils.video).
 """
 
 from __future__ import annotations
@@ -76,8 +77,6 @@ def main(argv=None):
                                    "item 10, scale-out"),
         (args.dataset_block == "auto", "--dataset_block auto is not ported: ROADMAP Queue 1 "
                                        "item 10, scale-out; pass i/N"),
-        (args.save_video, "--save_video is not ported: ROADMAP Queue 1 item 11, inference "
-                          "outputs"),
     ]
     for cond, what in unported:
         if cond:
@@ -112,6 +111,7 @@ def main(argv=None):
         use_adapt_yaw_range=args.use_adapt_yaw_range,
         load_embedding_coach_name=args.load_embedding_coach_name,
         description=args.description, log_snapshot=args.log_snapshot,
+        save_video=args.save_video,
     )
     dataset = PTIDataset(
         source_root=os.path.join(args.data_root, "crop"),

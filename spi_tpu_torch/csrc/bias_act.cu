@@ -8,8 +8,9 @@
 //   forward   y  = clamp(act(x + b[ch]) * gain, -clamp, clamp)
 //   backward  dx = g * act'(x + b[ch]) * gain, and 0 where the forward
 //             clamped (|act(x + b) * gain| >= clamp); act' is recomputed
-//             from x + b rather than saved. db is a sum of dx outside the
-//             kernel.
+//             from x + b rather than saved, and at x + b = 0 is that of
+//             spi_tpu's impl='xla' path (see act_grad). db is a sum of dx
+//             outside the kernel.
 // Rounding, as the Pallas kernels: x + b is added in the input's type
 // (for bf16: the f32 sum of two bf16 values rounded once to bf16, which is
 // the correctly rounded bf16 sum), then widened to f32; the activation, its
@@ -64,15 +65,18 @@ __device__ __forceinline__ float act_fwd(int act, float x, float alpha) {
   }
 }
 
-// d act / d x from the input x and the (pre-gain) activation y.
+// d act / d x from the input x and the (pre-gain) activation y. At x = 0
+// each takes the branch that jax.grad of spi_tpu's default impl='xla' takes
+// (relu'(0) = 0, lrelu'(0) = 1, elu'(0) = 1, selu'(0) = lambda alpha), not
+// the Pallas kernel's x >= 0 branch for relu and selu.
 __device__ __forceinline__ float act_grad(int act, float x, float y, float alpha) {
   switch (act) {
-    case kRelu: return x >= 0.0f ? 1.0f : 0.0f;
+    case kRelu: return x > 0.0f ? 1.0f : 0.0f;
     case kLrelu: return x >= 0.0f ? 1.0f : alpha;
     case kTanh: return 1.0f - y * y;
     case kSigmoid: return y * (1.0f - y);
     case kElu: return x >= 0.0f ? 1.0f : y + 1.0f;
-    case kSelu: return x >= 0.0f ? kSeluLambda : y + kSeluLambda * kSeluAlpha;
+    case kSelu: return x > 0.0f ? kSeluLambda : y + kSeluLambda * kSeluAlpha;
     case kSoftplus: return 1.0f / (1.0f + expf(-x));
     case kSwish: {
       float s = 1.0f / (1.0f + expf(-x));

@@ -1,5 +1,6 @@
-"""Per-identity inversion dataset (a copy of spi_tpu/data/dataset.py's
-PTIDataset; spec spi/data/images_dataset.py:102-226). Directory tree:
+"""Per-identity inversion datasets (copies of spi_tpu/data/dataset.py's
+PTIDataset and PTIDatasetM; spec spi/data/images_dataset.py:102-320).
+Directory tree:
 
     <root>/crop/<name>/target.<mode>   512^2 face crop
     <root>/c/<name>/target.npy         25-dim camera label
@@ -19,6 +20,8 @@ import os
 
 import numpy as np
 from PIL import Image
+
+from spi_tpu_torch.preprocess.camera_math import mirror_label
 
 
 @dataclasses.dataclass
@@ -111,6 +114,55 @@ class PTIDataset:
     def __iter__(self):
         for i in range(len(self)):
             yield self[i]
+
+
+class PTIDatasetM(PTIDataset):
+    """Paired mirror samples (spi/data/images_dataset.py:229-320
+    PTIDataset_M): each identity yields the original, then its
+    horizontally flipped twin `<name>_m`, read from the `<target>_m` files
+    that run_preprocess --mirror writes, or flipped on the fly (image,
+    camera by `mirror_label`, mask, landmarks) where they are absent."""
+
+    def __len__(self) -> int:
+        return 2 * len(self.source_paths)
+
+    def __getitem__(self, index: int) -> InversionSample:
+        base, mirrored = divmod(index, 2)
+        if not mirrored:
+            return super().__getitem__(base)
+        path = self.source_paths[base]
+        name = os.path.basename(os.path.dirname(path))
+        fname = f"{self.target_name}_m"
+
+        img_path = os.path.join(path, f"{fname}.{self.mode}")
+        c_path = os.path.join(self.c_root, name, fname + ".npy")
+        if os.path.exists(img_path) and os.path.exists(c_path):
+            image = load_image(img_path, size=self.size)
+            camera = np.load(c_path).astype(np.float32).reshape(1, 25)
+        else:
+            sample = super().__getitem__(base)
+            image = sample.image[:, :, :, ::-1].copy()
+            camera = mirror_label(sample.camera.reshape(25)).reshape(1, 25)
+
+        mask = None
+        if self.mask_root is not None:
+            mask = _load_mask(os.path.join(self.mask_root, name, fname), self.size)
+            if mask is None:
+                mask = _load_mask(os.path.join(self.mask_root, name, self.target_name), self.size)
+                mask = mask[:, :, :, ::-1].copy() if mask is not None else None
+
+        lm = None
+        if self.lm_root is not None:
+            for cand, flip in ((fname, False), (self.target_name, True)):
+                lm_path = os.path.join(self.lm_root, name, cand + ".npy")
+                if os.path.exists(lm_path):
+                    lm = np.load(lm_path).astype(np.float32).reshape(1, -1, 2)
+                    if flip:
+                        lm = lm.copy()
+                        lm[..., 0] = 256.0 - lm[..., 0]  # landmarks live at 256 scale
+                    break
+        return InversionSample(name=f"{name}_m", image=image, camera=camera, mask=mask,
+                               landmarks=lm)
 
 
 FACE_ATTRIBUTES = (1, 2, 3, 4, 5, 6, 7, 8, 10, 11, 12, 13)

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from spi_tpu_torch.models.perception.layers import BatchNorm
 from spi_tpu_torch.utils.device import resolve_device
 
 _STAGES = [(64, 64, 3), (64, 128, 4), (128, 256, 14), (256, 512, 3)]  # (in, depth, units)
@@ -41,25 +42,6 @@ class _Weight(nn.Module):
         self.weight = nn.Parameter(torch.empty(*shape, device=device))
 
 
-class _BatchNorm(nn.Module):
-    """Batch norm in eval form over dim 1: affine weight and bias,
-    running statistics as buffers."""
-
-    def __init__(self, ch, device=None):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(ch, device=device))
-        self.bias = nn.Parameter(torch.zeros(ch, device=device))
-        self.register_buffer("running_mean", torch.zeros(ch, device=device))
-        self.register_buffer("running_var", torch.ones(ch, device=device))
-
-    def forward(self, x, eps=1e-5):
-        inv = torch.rsqrt(self.running_var + eps)
-        scale = self.weight * inv
-        shift = self.bias - self.running_mean * scale
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        return x * scale.reshape(shape) + shift.reshape(shape)
-
-
 def _prelu(x, slope):
     return torch.where(x >= 0, x, slope.reshape(1, -1, 1, 1) * x)
 
@@ -69,17 +51,17 @@ class _Unit(nn.Module):
         super().__init__()
         self.stride = stride
         self.res_layer = nn.ModuleDict({
-            "0": _BatchNorm(cin, device),
+            "0": BatchNorm(cin, device),
             "1": _Weight(depth, cin, 3, 3, device=device),
             "2": _Weight(depth, device=device),
             "3": _Weight(depth, depth, 3, 3, device=device),
-            "4": _BatchNorm(depth, device),
+            "4": BatchNorm(depth, device),
             "5": nn.ModuleDict({"fc1": _Weight(depth // 16, depth, 1, 1, device=device),
                                 "fc2": _Weight(depth, depth // 16, 1, 1, device=device)}),
         })
         if cin != depth:
             self.shortcut_layer = nn.ModuleDict({
-                "0": _Weight(depth, cin, 1, 1, device=device), "1": _BatchNorm(depth, device)})
+                "0": _Weight(depth, cin, 1, 1, device=device), "1": BatchNorm(depth, device)})
         else:
             self.shortcut_layer = None
 
@@ -106,13 +88,13 @@ class IRSE50(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.input_layer = nn.ModuleDict({
-            "0": _Weight(64, 3, 3, 3, device=dev), "1": _BatchNorm(64, dev),
+            "0": _Weight(64, 3, 3, 3, device=dev), "1": BatchNorm(64, dev),
             "2": _Weight(64, device=dev)})
         self.body = nn.ModuleDict({str(i): _Unit(cin, depth, stride, dev)
                                    for i, (cin, depth, stride) in enumerate(units())})
         self.output_layer = nn.ModuleDict({
-            "0": _BatchNorm(512, dev), "3": nn.Linear(512 * 7 * 7, embedding_size, device=dev),
-            "4": _BatchNorm(embedding_size, dev)})
+            "0": BatchNorm(512, dev), "3": nn.Linear(512 * 7 * 7, embedding_size, device=dev),
+            "4": BatchNorm(embedding_size, dev)})
         self.reset_parameters(torch.Generator().manual_seed(seed))
 
     def reset_parameters(self, gen):

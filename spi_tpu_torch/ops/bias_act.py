@@ -37,7 +37,8 @@ class _ActSpec:
     def_gain: float
     cuda_id: int
     # d act / d x from the input x and the activation y, as the kernels'
-    # act_grad (spi_tpu/ops/bias_act_pallas.py `_act_grad`).
+    # act_grad: spi_tpu/ops/bias_act_pallas.py `_act_grad`, but at x = 0
+    # the value of jax.grad of spi_tpu's default impl='xla' path.
     grad: Callable
 
 
@@ -57,8 +58,10 @@ def _swish_grad(x):
 # with each activation's id in csrc/bias_act.cu.
 activation_funcs: dict[str, _ActSpec] = {
     "linear": _ActSpec(lambda x, alpha: x, 0.0, 1.0, 0, lambda x, y, alpha: torch.ones_like(x)),
+    # relu'(0) = 0 and selu'(0) = lambda alpha, as jax.grad of impl='xla'
+    # (the Pallas kernel takes the x >= 0 branch there).
     "relu": _ActSpec(lambda x, alpha: F.relu(x), 0.0, math.sqrt(2), 1,
-                     lambda x, y, alpha: _step(x, 0.0)),
+                     lambda x, y, alpha: (x > 0).to(x.dtype)),
     # As jax.nn.leaky_relu: the x >= 0 branch at 0, so lrelu'(0) = 1 like
     # both spi_tpu impls and the kernel (F.leaky_relu's gradient there is alpha).
     "lrelu": _ActSpec(lambda x, alpha: torch.where(x >= 0, x, x * alpha), 0.2, math.sqrt(2), 2,
@@ -69,7 +72,7 @@ activation_funcs: dict[str, _ActSpec] = {
     "elu": _ActSpec(lambda x, alpha: F.elu(x), 0.0, 1.0, 5,
                     lambda x, y, alpha: torch.where(x >= 0, 1.0, y + 1.0)),
     "selu": _ActSpec(lambda x, alpha: F.selu(x), 0.0, 1.0, 6,
-                     lambda x, y, alpha: torch.where(x >= 0, _SELU_LAMBDA,
+                     lambda x, y, alpha: torch.where(x > 0, _SELU_LAMBDA,
                                                      y + _SELU_LAMBDA * _SELU_ALPHA)),
     "softplus": _ActSpec(lambda x, alpha: F.softplus(x), 0.0, 1.0, 7,
                          lambda x, y, alpha: torch.sigmoid(x)),
@@ -120,7 +123,10 @@ def bias_act_grad_plain(g, x, b=None, dim=1, act="linear", alpha=None, gain=None
     """The plain version of the backward kernel: dx = g * act'(x + b) *
     gain in float32, 0 where the forward clamped (|act(x + b) * gain| >=
     clamp), rounded once to x's dtype (spi_tpu/ops/bias_act_pallas.py
-    `_bwd_kernel`)."""
+    `_bwd_kernel`). At x + b = 0, act' is that of jax.grad of spi_tpu's
+    default impl='xla' path, which the models run: relu'(0) = 0 and
+    selu'(0) = lambda alpha, where the Pallas kernel gives 1 and lambda;
+    lrelu'(0) = elu'(0) = 1 in both."""
     spec, alpha, gain, clamp = _resolve(act, alpha, gain, clamp)
     xb = _add_bias(x, b, dim)
     y = spec.func(xb, alpha)

@@ -134,9 +134,9 @@ def main(argv=None):
                     help="ray tiles as rows,columns,samples (at most 512 points)")
     args = ap.parse_args(argv)
     tiles = [tuple(int(v) for v in t.split(",")) for t in args.tiles]
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from spi_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(torch.device("cuda", 0))
     for (label, tile), (reductions, ms, err) in run(dev, tiles).items():
         print(f"{label:10s} tile {tile}: {reductions} reductions, device-only {ms:.4f} ms, "
               f"error {err:.2e} ({torch.cuda.get_device_name(dev)})", flush=True)

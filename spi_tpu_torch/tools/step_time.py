@@ -14,7 +14,8 @@ yawed by MIR_YAW) or of stage 2 from the pivot of PIVOT_STEPS 'sg' steps
 face mask and landmarks. It prints one line: the median s/step after
 the second step, every step's time, and the peak device memory.
 `chip_smoke.py` times the same workload through `build_model`,
-`projection`, `tuning`, `rotbbox` and `time_steps`.
+`projection`, `tuning`, `rotbbox` and `time_steps`, and
+`tools/bench.py` builds its model and stage 1 from it.
 Run as a file (the second form), it imports `spi_tpu_torch` from
 PYTHONPATH, so it times another checkout's package on the same card
 ('sg' only where that tree has no other mode).
@@ -38,17 +39,18 @@ MIR_YAW = 0.4
 PIVOT_STEPS = 8
 
 
-def build_model(dev, dtype="float32"):
-    """ffhq512_128_config at its published widths and compute dtype
-    `dtype`, random seeded weights; LPIPS-VGG16; a random 512^2 target;
-    the canonical camera."""
+def build_model(dev, dtype="float32", lpips_dtype="float32", tiny=False):
+    """ffhq512_128_config at its published widths (tiny_test_config with
+    `tiny`, for tests) and compute dtype `dtype`, random seeded weights;
+    LPIPS-VGG16 in `lpips_dtype`; a random target at the generator's
+    resolution; the canonical camera."""
     from spi_tpu_torch.criteria.lpips import LPIPS
-    from spi_tpu_torch.models import TriPlaneGenerator, ffhq512_128_config
+    from spi_tpu_torch.models import TriPlaneGenerator, ffhq512_128_config, tiny_test_config
     from spi_tpu_torch.utils import camera as cam
 
-    g = TriPlaneGenerator(ffhq512_128_config(compute_dtype=dtype), device=dev,
-                          seed=WEIGHT_SEED)
-    lpips = LPIPS(device=dev)
+    config = tiny_test_config if tiny else ffhq512_128_config
+    g = TriPlaneGenerator(config(compute_dtype=dtype), device=dev, seed=WEIGHT_SEED)
+    lpips = LPIPS(device=dev, compute_dtype=lpips_dtype)
     res = g.cfg.img_resolution
     target = torch.tanh(torch.randn(1, 3, res, res, device=dev,
                                     generator=torch.Generator(device=dev).manual_seed(TARGET_SEED)))
@@ -98,6 +100,20 @@ def synthetic_face(dev, res=512):
     t = torch.linspace(0, 2 * math.pi, 69, device=dev)[:68]
     lm = torch.stack([128 + 60 * torch.cos(t), 256 * 0.45 * 1.15 + 75 * torch.sin(t)], -1)
     return mask, lm[None]
+
+
+def write_photo(path, seed=0, size=640):
+    """A synthetic size^2 stand-in for a raw portrait photo, from a seed: a
+    skin-toned blob on a background, with noise (the preprocess's input in
+    `chip_smoke.py` and the tests)."""
+    import numpy as np
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:size, 0:size] / (size - 1.0)
+    blob = np.exp(-(((xx - 0.5) ** 2) + (yy - 0.45) ** 2) / 0.05)
+    img = np.stack([0.6 + 0.3 * blob, 0.45 + 0.25 * blob, 0.4 + 0.2 * blob], -1)
+    img = img + np.random.default_rng(seed).normal(0, 0.05, img.shape)
+    Image.fromarray((img.clip(0, 1) * 255).astype(np.uint8)).save(path)
 
 
 def rotbbox(model, pivot, steps, dev):
@@ -161,8 +177,6 @@ def main(argv=None):
     from spi_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(torch.device("cuda", 0))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     model = build_model(dev, args.dtype)
     if args.mode in ("tune", "rotbbox"):
         w, noise, _ = time_steps(projection(model, "sg", PIVOT_STEPS, dev))[0]

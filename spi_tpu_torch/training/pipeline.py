@@ -38,6 +38,7 @@ from spi_tpu_torch.utils.device import module_device, resolve_device
 from spi_tpu_torch.utils.image import save_image
 from spi_tpu_torch.utils.metrics import Metric, MetricLog
 from spi_tpu_torch.utils.params import replace_noise
+from spi_tpu_torch.utils.video import render_orbit_video
 
 
 @dataclasses.dataclass
@@ -61,6 +62,8 @@ class PipelineConfig:
     load_embedding_coach_name: str | None = None
     description: str | None = None
     seed: int = 0
+    # Render an orbit video of each tuned generator into video/<coach>/.
+    save_video: bool = False
     # Save the in-progress reconstruction every N tuning steps
     # (global_config.py:7, rot_bbox_cx_coach.py:153-154); 0 = off.
     log_snapshot: int = 0
@@ -247,15 +250,20 @@ class InversionPipeline:
             generator=torch.Generator(device=self.device).manual_seed(0))["image"]
 
     def post_process(self, name: str, w, c) -> dict[str, Any]:
-        """Save {w, c, G}, the image and the mirrored image
-        (base_coach.py:219-226)."""
+        """Save {w, c, G}, the image, the mirrored image
+        (base_coach.py:219-226) and, with `save_video`, the orbit video
+        (its file in the result's 'video')."""
         save_flat(os.path.join(self.dirs["checkpoints"], f"{name}.npz"),
                   {"w": w, "c": c, **module_flat(self.generator, "G.")})
         img = self.render(w, c)
         save_image(img, os.path.join(self.dirs["image"], f"{name}.jpg"))
         img_m = self.render(w, cam.mirror_camera(c))
         save_image(img_m, os.path.join(self.dirs["image_m"], f"{name}.jpg"))
-        return {"final_image": img, "final_image_m": img_m, "w": w.detach().cpu()}
+        out = {"final_image": img, "final_image_m": img_m, "w": w.detach().cpu()}
+        if self.config.save_video:
+            _, out["video"] = render_orbit_video(self.generator, w,
+                                                 os.path.join(self.dirs["video"], f"{name}.mp4"))
+        return out
 
     def run(self, dataset) -> list[dict]:
         results = []

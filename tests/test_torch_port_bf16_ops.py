@@ -20,7 +20,9 @@ Tolerances:
   difference that cancels as the activation saturates (tanh 1 - y^2,
   sigmoid y(1 - y), elu y + 1, selu y + lambda alpha), dx is also taken
   within 1e-5 |g| gain: there a few f32 ulps of y become many bf16 ulps of
-  a small dx.
+  a small dx. For relu and selu, where x + b is exactly 0, dx is held to
+  act'(0) of `impl='xla'` (relu 0, selu lambda alpha), which the plain rule
+  and the CUDA kernel take in place of the Pallas kernel's 1 and lambda.
 - plain bias_act against `impl='xla'`, the chain spi_tpu's models run,
   jitted as they run it (XLA's default precision), forward only: 1 bf16
   ulp for each bf16 rounding of the chain after the sum, plus the plain
@@ -178,10 +180,19 @@ def test_bias_act_within_an_ulp_of_pallas(data, act, clamp):
     y, dx = _plain(data[0], act, clamp)
     jy, jdx = _pallas(data[1], act, clamp)
     assert _ulps(y, jy) <= 1.0
+    x, b, g = data[0]
+    kink = (x.float() + b.float()[None, :, None, None]) == 0
+    if act in ("relu", "selu"):
+        # At x + b = 0 the plain rule is impl='xla''s (relu'(0) = 0, selu'(0)
+        # = lambda alpha), not the Pallas kernel's x >= 0 branch.
+        at_zero = {"relu": 0.0, "selu": 1.0507009873554805 * 1.6732632423543772}[act]
+        assert kink.any()
+        assert torch.equal(dx[kink], (g.float()[kink] * at_zero * GAIN).bfloat16())
+        jdx = torch.where(kink, dx.float(), jdx)
     err = (dx.float() - jdx).abs()
     ok = err <= _ulp(jdx)
     if act in SATURATING:
-        ok |= err <= 1e-5 * data[0][2].float().abs() * GAIN
+        ok |= err <= 1e-5 * g.float().abs() * GAIN
     assert bool(ok.all()), f"{int((~ok).sum())} elements, up to {_ulps(dx, jdx)} ulp"
 
 

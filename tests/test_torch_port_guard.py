@@ -101,6 +101,32 @@ def test_pipeline_and_cli_raise_without_gpu(no_cuda, tmp_path):
                             "--random_init", "--tiny", "--fp32"])
 
 
+def test_outputs_and_preprocess_raise_without_gpu(no_cuda, tmp_path):
+    """The orbit video / shape CLI, the preprocess CLI and networks and the
+    benchmark entry point default to the card and raise without one."""
+    from spi_tpu_torch.cli import run_preprocess, run_video
+    from spi_tpu_torch.models.perception.bisenet import BiSeNet
+    from spi_tpu_torch.models.perception.face_recon import FaceReconNet
+    from spi_tpu_torch.models.perception.fan import FAN
+    from spi_tpu_torch.preprocess.pipeline import PreprocessModels
+    from spi_tpu_torch.tools import bench
+
+    for module in (FAN, FaceReconNet, BiSeNet, PreprocessModels.random_init):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            module()
+    ckpt = tmp_path / "a.npz"
+    ckpt.write_bytes(b"")
+    calls = [lambda: run_video.main(["--checkpoint", str(ckpt), "--output", "unused"]),
+             lambda: run_preprocess.main(["--input_dir", str(tmp_path), "--output_dir",
+                                          str(tmp_path), "--random_init"]),
+             lambda: run_preprocess.main(["--input_dir", str(tmp_path), "--output_dir",
+                                          str(tmp_path), "--ckpt_dir", str(tmp_path)]),
+             lambda: bench.main(["--tiny"])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no GPU"):
+            call()
+
+
 def test_resolve_device_names_the_card(monkeypatch):
     """`cuda` resolves to the current card's index, the device a module on
     the card reports, so that the entry points' device checks agree."""
@@ -111,6 +137,24 @@ def test_resolve_device_names_the_card(monkeypatch):
     assert resolve_device() == resolve_device("cuda") == torch.device("cuda", 0)
     assert resolve_device("cuda:0") == torch.device("cuda", 0)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_resolve_device_turns_tf32_off(monkeypatch):
+    """The port's one precision policy: resolving a CUDA device turns TF32
+    off for matmuls and cuDNN convolutions, so that every entry point
+    (the CLIs, the tools, chip_smoke.py) computes float32 in float32;
+    resolving the CPU leaves the flags alone."""
+    from spi_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    resolve_device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    resolve_device("cuda")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
 
 
 @pytest.mark.parametrize("tool", ["profile_gather", "probe_scatter", "probe_winscatter"])

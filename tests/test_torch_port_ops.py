@@ -100,6 +100,39 @@ class TestBiasAct:
         np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), rtol=1e-6)
         np.testing.assert_allclose(tb.grad.numpy(), np.asarray(jgb), rtol=1e-6)
 
+    @pytest.mark.parametrize("clamp", [None, 0.9])
+    @pytest.mark.parametrize("act", ACTS)
+    def test_grad_at_zero_matches_xla(self, act, clamp):
+        """Where x + b is exactly 0, the port's gradient (the plain path's
+        autograd, and `bias_act_grad_plain`, the rule the CUDA kernel is
+        held to) is jax.grad of spi_tpu's default impl='xla' path: relu'(0)
+        = 0 and selu'(0) = lambda alpha, where the Pallas kernel gives 1 and
+        lambda. No element lies exactly at the clamp, where jnp.clip's
+        gradient is 1/2."""
+        from spi_tpu.ops.bias_act import bias_act as jbias_act
+        from spi_tpu_torch.ops.bias_act import bias_act_grad_plain
+
+        b = _rand(8, seed=11)
+        x = _rand(3, 8, 4, seed=12, scale=2.0)
+        x[:, :, :2] = -b[None, :, None]  # x + b = 0 exactly at 48 of 96 elements
+        at_zero = (x + b[None, :, None]) == 0
+        assert at_zero.sum() == 48
+        g = _rand(3, 8, 4, seed=13)
+
+        def jloss(x):
+            return jnp.sum(jbias_act(x, jnp.asarray(b), act=act, gain=1.3, clamp=clamp) * g)
+
+        jgx = np.asarray(jax.grad(jloss)(jnp.asarray(x)))
+        tx = _t(x, True)
+        (ops.bias_act(tx, _t(b), act=act, gain=1.3, clamp=clamp) * _t(g)).sum().backward()
+        kernel_rule = bias_act_grad_plain(_t(g), _t(x), _t(b), act=act, gain=1.3, clamp=clamp)
+        if act in ("relu", "selu"):
+            want = {"relu": 0.0, "selu": 1.0507009873554805 * 1.6732632423543772 * 1.3}[act]
+            np.testing.assert_allclose(jgx[at_zero], want * g[at_zero], rtol=1e-6, atol=0)
+        for got in (tx.grad, kernel_rule):
+            np.testing.assert_allclose(got.numpy(), jgx, rtol=1e-5, atol=1e-6)
+            np.testing.assert_array_equal(got.numpy()[at_zero] == 0, jgx[at_zero] == 0)
+
     @pytest.mark.parametrize("act", ["linear", "lrelu"])
     def test_fc_layout_trail_one(self, act):
         # (rows, C) with the bias on the last axis: the FC / decoder call.

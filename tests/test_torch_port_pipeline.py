@@ -10,7 +10,8 @@ files against spi_tpu's.
   port reads an embedding npz that spi_tpu's pipeline wrote;
 - PTIDataset (with its resume filter), the mask and image helpers and
   the perception bundle's sections against spi_tpu's;
-- the parts that are not ported raise NotImplementedError.
+- the parts that are not ported (--parallel_images above 1, --dataset_block
+  auto) raise NotImplementedError.
 
 Files are compared key for key and value for value (exact).
 """
@@ -217,8 +218,7 @@ def test_perception_bundle_sections():
 
 
 @pytest.mark.parametrize("flag", [["--fp32", "--parallel_images", "2"],
-                                  ["--fp32", "--dataset_block", "auto"],
-                                  ["--fp32", "--save_video"]])
+                                  ["--fp32", "--dataset_block", "auto"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         run_inversion.main(["--data_root", "unused", "--device", "cpu", "--tiny", *flag])
