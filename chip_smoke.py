@@ -51,12 +51,29 @@ Phases (any failure exits non-zero):
  13. the benchmark line (spi_tpu_torch/tools/bench.py, bfloat16, the
      pipeline sample cut to 4 'mir' + 8 RotBbox steps): bench.py's metric
      string and finite positive numbers; the launches of one stage-1 step
-     and one stage-2 cadence.
+     and one stage-2 cadence;
+ 14. several images a step (parallel.spmd_invert): two images at full
+     width in float32, 2 'mir' + 5 RotBbox steps, batched against one by
+     one with the same per-image generators (w, LPIPS, steps, a tuned
+     leaf), then with a threshold one of them reaches early;
+ 15. per-image seconds a step, peak memory and launches a step at B = 1,
+     2, 4 through the batched path ('sg' and a RotBbox cadence, float32
+     and bfloat16; a cell that does not fit the card is reported), the
+     launches equal to B = 1's, and the device-busy share at B = 4;
+ 16. the inversion CLI with --parallel_images 4 on four synthetic
+     identities in bfloat16;
+ 17. --dataset_block auto in two processes on the card (gloo, the
+     environment torchrun sets), the tiny generator on three identities:
+     the stripes and the global metric means.
+Phase 2 also holds the splat and both bias_act kernels (f32 and bf16, a
+batched and a shared bias) under torch.func.vmap against their plain
+versions under the same vmap and a loop over the images: one launch each
+for the batch.
 Phase 3 also holds one tiny_test_config RotBbox step (all four
 regularizers, the mirror term on) on the card against the CPU: its LPIPS
 and every weight gradient, in both dtypes.
 
-Each path (phases 3, 4, 6, 7, 9, 10, 12, 13 and each tool) runs with the launch
+Each path (phases 3, 4, 6, 7, 9, 10, 12-17 and each tool) runs with the launch
 counts set to 0 just before it and fails unless each kernel it is meant
 to launch was launched: a bfloat16 path the bias_act kernels' bf16 forms.
 Prints the card's name and power limit, one `{"kernels": [...]}` line
@@ -1192,11 +1209,12 @@ def phase_rotbbox(dev, model, pivot, num_steps=9, dtype="float32"):
     return reg_median, rec_median
 
 
-def write_identity(root, name):
+def write_identity(root, name, seed=0, yaw=None):
     """One synthetic 512^2 identity in the dataset's layout (tools/
     make_smoke_data.py's: crop/, c/, mask/, lm/), seen from the camera
-    yawed by MIR_YAW: a soft blob of skin tones, the ellipse face mask as
-    parsing id 1, landmarks on its ellipse at 256 scale."""
+    yawed by `yaw` (MIR_YAW by default): a soft blob of skin tones with
+    noise from `seed`, the ellipse face mask as parsing id 1, landmarks on
+    its ellipse at 256 scale."""
     import numpy as np
     import torch
     from PIL import Image
@@ -1209,10 +1227,10 @@ def write_identity(root, name):
     yy, xx = np.mgrid[0:512, 0:512] / 511.0
     blob = np.exp(-(((xx - 0.5) ** 2) + (yy - 0.45) ** 2) / 0.05)
     img = np.stack([0.6 + 0.3 * blob, 0.45 + 0.25 * blob, 0.4 + 0.2 * blob], -1)
-    img = img + np.random.default_rng(0).normal(0, 0.01, img.shape)
+    img = img + np.random.default_rng(seed).normal(0, 0.01, img.shape)
     Image.fromarray((img.clip(0, 1) * 255).astype(np.uint8)).save(root / "crop" / name /
                                                                   "target.png")
-    camera = cam.canonical_camera(yaw=MIR_YAW).numpy().reshape(25)
+    camera = cam.canonical_camera(yaw=MIR_YAW if yaw is None else yaw).numpy().reshape(25)
     np.save(root / "c" / name / "target.npy", camera)
     mask, lm = synthetic_face(torch.device("cpu"))
     np.save(root / "mask" / name / "target.npy", mask[0, 0].numpy().astype(np.int64))
@@ -1556,6 +1574,472 @@ def phase_tools(dev):
                   f"tool {tool}: {case} kernel error {err:.3e} above {tol}")
 
 
+
+VMAP_B = 3  # images in phase 2's vmapped kernel calls
+
+
+def phase_vmap_kernels(dev):
+    """Phase 2 under torch.func.vmap (`utils/params.vmap_strict`), B =
+    VMAP_B images: the splat on B coarse passes (each image its own
+    planes and points) and both bias_act kernels (each image its own bias:
+    the batched-bias form; and a shared one, folded into the rows), in
+    float32 and bfloat16. Each against its plain version under the same
+    vmap (the splat: the autograd of the plain 4-corner gather; bias_act:
+    `bias_act_plain` under autograd) and against a loop over the images of
+    the unbatched kernel; one launch of each kernel for the whole batch.
+    Tolerances are phase 2's: the splat TOL_SPLAT; bias_act's y and dx
+    bitwise against the loop (one kernel's arithmetic per element), within
+    TOL_ELEMWISE (f32) or bitwise (bf16, lrelu and linear) against the
+    plain chain; db, a sum in another order, within 1e-5 (f32) or 2^-8
+    (bf16) of its largest entry."""
+    import importlib
+
+    import torch
+
+    from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.ops import plane_splat as ps
+    from spi_tpu_torch.ops.grid_sample import sample_flat
+    from spi_tpu_torch.tools.splat_tiles import coarse_pass_points
+    from spi_tpu_torch.tools.timing import device_ms
+    from spi_tpu_torch.utils.params import vmap_strict
+
+    ba = importlib.import_module("spi_tpu_torch.ops.bias_act")
+    b = VMAP_B
+    gen = torch.Generator(device=dev).manual_seed(21)
+    h = w = 256
+    c = 32
+    coarse = coarse_pass_points(dev)  # (1, P, 3): the canonical camera's coarse pass
+    p = coarse.shape[1]
+    geom = ps.RayGeom(1, 128, 128, 48)
+    coords = torch.stack([coarse * (1.0 - 0.02 * i) for i in range(b)])  # (B, 1, P, 3)
+    planes = torch.randn(b, 1, 3, h * w, c, device=dev, generator=gen).requires_grad_(True)
+    cot = torch.randn(b, 1, 3, p, c, device=dev, generator=gen)
+
+    def plain_sample(pl, x):
+        n, _, hw, ch = pl.shape
+        grids = ps.project_onto_planes(x * 2.0).reshape(n * 3, x.shape[1], 2)
+        return sample_flat(pl.reshape(n * 3, hw, ch), grids, h, w).reshape(n, 3, -1, ch)
+
+    _lib.reset_launch_counts()
+    out = vmap_strict(lambda pl, x: ps.sample_planes(pl, x, 1.0, geom))(planes, coords)
+    (grad,) = torch.autograd.grad(out, planes, cot)
+    torch.cuda.synchronize()
+    launches = dict(_lib.launch_counts)
+    check(launches["plane_splat"] == 1, f"vmapped splat: {launches['plane_splat']} launches")
+    out_p = vmap_strict(plain_sample)(planes, coords)
+    (grad_p,) = torch.autograd.grad(out_p, planes, cot)
+    errs = {"plain": rel_err(grad, grad_p), "forward": rel_err(out.detach(), out_p.detach())}
+    loop = torch.stack([ps.splat_cuda(coords[i].contiguous(), cot[i].contiguous(), 1.0, h, w,
+                                      geom) for i in range(b)])
+    errs["loop"] = rel_err(grad, loop)
+    del out, out_p, grad_p, loop
+    log(f"vmap splat, {b} coarse passes (1, 3, {p}, {c}) each: one launch; gradient against "
+        f"the plain gather's autograd {errs['plain']:.3e}, against a loop of the kernel "
+        f"{errs['loop']:.3e}, forward against the plain gather {errs['forward']:.3e} "
+        f"(tol {TOL_SPLAT})")
+    check(max(errs.values()) <= TOL_SPLAT, f"vmapped splat disagrees: {errs}")
+    del grad, planes, cot, coords
+
+    spec = ba.activation_funcs["lrelu"]
+    clamp = 256.0 * spec.def_gain
+    shapes = {"block128": ((1, 128, 128, 128), 1), "decoder": ((128 * 128 * 4, 64), 1)}
+    for dtype in (torch.float32, torch.bfloat16):
+        names = ba._COUNTS[dtype]
+        for label, (shape, dim) in shapes.items():
+            for batched_bias in (True, False):
+                x = (torch.randn(b, *shape, device=dev, generator=gen) * 3).to(dtype)
+                x.requires_grad_(True)
+                bias = torch.randn(*((b,) if batched_bias else ()), shape[dim], device=dev,
+                                   generator=gen).to(dtype).requires_grad_(True)
+                g = torch.randn(b, *shape, device=dev, generator=gen).to(dtype)
+                in_dims = (0, 0 if batched_bias else None)
+
+                def kernel(xi, bi):
+                    return ba.bias_act(xi, bi, dim=dim, act="lrelu", clamp=clamp)
+
+                def plain(xi, bi):
+                    return ba.bias_act_plain(xi, bi, dim=dim, act="lrelu", clamp=clamp)
+
+                _lib.reset_launch_counts()
+                y = vmap_strict(kernel, in_dims)(x, bias)
+                dx, db = torch.autograd.grad(y, (x, bias), g)
+                torch.cuda.synchronize()
+                n_launch = (_lib.launch_counts[names[0]], _lib.launch_counts[names[1]])
+                check(n_launch == (1, 1), f"vmapped bias_act {label}: launches {n_launch}")
+                if dtype == torch.float32:  # the plain chain under autograd
+                    yp = vmap_strict(plain, in_dims)(x, bias)
+                    dxp, dbp = torch.autograd.grad(yp, (x, bias), g)
+                else:  # bias_act_plain and the backward kernel's plain version
+                    yp = vmap_strict(plain, in_dims)(x.detach(), bias.detach())
+                    dxp = vmap_strict(lambda gi, xi, bi: ba.bias_act_grad_plain(
+                        gi, xi, bi, dim=dim, act="lrelu", clamp=clamp), (0, 0, in_dims[1]))(
+                        g, x.detach(), bias.detach())
+                    dbp = _bias_sums(dxp, shape, dim, batched_bias).to(dtype)
+                db_loop = torch.zeros(bias.shape, device=dev)  # float32 sums, one rounding
+                same = True
+                for i in range(b):
+                    bi = bias[i] if batched_bias else bias
+                    yi = ba.bias_act_fwd_cuda(x[i].detach(), bi.detach(), dim, spec.cuda_id,
+                                              spec.def_alpha, spec.def_gain, clamp)
+                    dxi = ba.bias_act_bwd_cuda(g[i], x[i].detach(), bi.detach(), dim,
+                                               spec.cuda_id, spec.def_alpha, spec.def_gain,
+                                               clamp)
+                    same &= torch.equal(yi, y[i]) and torch.equal(dxi, dx[i])
+                    dbi = _bias_sums(dxi[None], shape, dim, False)
+                    if batched_bias:
+                        db_loop[i] = dbi
+                    else:
+                        db_loop += dbi
+                db_loop = db_loop.to(dtype)
+                if dtype == torch.float32:
+                    elem = max(float(((a - r).abs() - TOL_ELEMWISE * (1 + r.abs())).max())
+                               for a, r in ((y, yp), (dx, dxp)))
+                    plain_ok, db_tol = elem <= 0, 1e-5
+                else:
+                    plain_ok, db_tol = torch.equal(y, yp) and torch.equal(dx, dxp), 2.0 ** -8
+                e_db = (rel_err(db.float(), dbp.float()), rel_err(db.float(), db_loop.float()))
+                log(f"vmap bias_act {str(dtype)[6:]} {label} x {b} images, "
+                    f"{'batched' if batched_bias else 'shared'} bias: launches {n_launch}; "
+                    f"y, dx against the loop bitwise {same}, against the plain chain "
+                    f"{'within tolerance' if plain_ok else 'OUT'}; db error {e_db[0]:.2e} "
+                    f"(plain) / {e_db[1]:.2e} (loop) (tol {db_tol:.1e})")
+                if batched_bias and label == "block128":
+                    # The batched-bias form beside the unbatched one on the same B images.
+                    xs, gs, bs = x.detach(), g, bias.detach()
+                    cfg = (dim + 1, spec.cuda_id, spec.def_alpha, spec.def_gain, clamp)
+                    t = [device_ms(fn) for fn in (
+                        lambda: ba.bias_act_fwd_cuda(xs, bs, *cfg),
+                        lambda: ba.bias_act_fwd_cuda(xs, bs[0], *cfg),
+                        lambda: ba.bias_act_bwd_cuda(gs, xs, bs, *cfg),
+                        lambda: ba.bias_act_bwd_cuda(gs, xs, bs[0], *cfg))]
+                    log(f"bias_act {str(dtype)[6:]} {label} x {b} images, device-only: batched-bias "
+                        f"form fwd {t[0]:.4f} ms, bwd {t[2]:.4f} ms; one bias for all fwd "
+                        f"{t[1]:.4f} ms, bwd {t[3]:.4f} ms")
+                check(same, f"vmapped bias_act {dtype} {label} differs from a loop of the kernel")
+                check(plain_ok, f"vmapped bias_act {dtype} {label} disagrees with the plain chain")
+                check(max(e_db) <= db_tol, f"vmapped bias_act {dtype} {label} db: {e_db}")
+                del x, bias, g, y, dx, db, yp, dxp, dbp
+
+
+def _bias_sums(dx, shape, dim, per_image):
+    """bias_act's db from (B, *shape) dx: one (C,) sum over all B images, or
+    (B, C) per image; in float32."""
+    c = shape[dim]
+    rows = dx.float().reshape(dx.shape[0], -1, c, math.prod(shape[dim + 1:]))
+    return rows.sum(dim=(1, 3)) if per_image else rows.sum(dim=(0, 1, 3))
+
+
+def phase_batched_vs_serial(dev, b=2, first_steps=2, tune_steps=5):
+    """B images at full width in float32 through the batched program
+    (`parallel.spmd_invert`) and one by one through `project` and
+    `tune_generator`, with the same per-image generators ('mir' stage 1
+    from the yawed camera, then RotBbox with rot 0.1, mirror-rot 0.05
+    (BoxCX), depth 1, synthetic face mask and landmarks): w, the last
+    LPIPS, the steps run and one tuned leaf per image within TOL_SYNTH of
+    the largest entry. Then a threshold that one image reaches early (read
+    from the first run's LPIPS): its steps run are fewer, and it equals
+    the serial run's with that threshold. The first image's target is
+    random, the second a smooth synthetic face, so that their LPIPS lie
+    apart and one threshold stops one of them only."""
+    import dataclasses
+
+    import torch
+
+    from spi_tpu_torch.criteria.bbox_cx import BoxCXLoss
+    from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.parallel import spmd_invert
+    from spi_tpu_torch.tools import step_time
+    from spi_tpu_torch.training import coaches, projectors
+    from spi_tpu_torch.utils.params import index_tree, trainable_parameters
+
+    model = build_model(dev)
+    g, lpips = model[0], model[1]
+    targets, cameras = step_time.batch_inputs(model, b, dev, step_time.MIR_YAW)
+    res = g.cfg.img_resolution
+    yy, xx = torch.meshgrid(*(torch.linspace(0, 1, res, device=dev),) * 2, indexing="ij")
+    blob = torch.exp(-((xx - 0.5) ** 2 + (yy - 0.45) ** 2) / 0.05)
+    targets[1] = torch.stack([0.6 + 0.3 * blob, 0.45 + 0.25 * blob, 0.4 + 0.2 * blob])[None] \
+        * 2 - 1
+    mask, lm = step_time.synthetic_face(dev, res)
+    masks, lms = mask[None].expand(b, *mask.shape), lm[None].expand(b, *lm.shape)
+    box = BoxCXLoss(device=dev)
+    proj = projectors.ProjectorSettings(mode="mir", num_steps=first_steps, w_avg_samples=600)
+    free = coaches.CoachSettings(num_steps=tune_steps, lpips_threshold=-1.0, rot_lambda=0.1,
+                                 mirror_rot_lambda=0.05, depth_lambda=1.0)
+    start = {k: v.detach().clone() for k, v in trainable_parameters(g).items()}
+    leaf = "superresolution.block1.conv1.weight"
+
+    def rngs():
+        return [torch.Generator(device=dev).manual_seed(31 + i) for i in range(b)]
+
+    def batched(settings, trace=None):
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = spmd_invert(g, lpips, proj, settings, box_cx=box, device=dev)(
+            targets, cameras, rngs=rngs(), face_masks=masks, landmarks=lms)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k in INVERSION_KERNELS:
+            check(_lib.launch_counts[k] > 0, f"kernel {k} was never launched on the batched path")
+        check(all(torch.equal(v, start[k]) for k, v in trainable_parameters(g).items()),
+              "the batched path changed the generator module's weights")
+        return out, wall, dict(_lib.launch_counts)
+
+    def serial(settings, i):
+        rng = rngs()[i]
+        t0 = time.perf_counter()
+        w, noise, _ = projectors.project(g, lpips, targets[i], cameras[i], proj, rng=rng,
+                                         device=dev)
+        lps = []
+        _, (steps, lp) = coaches.tune_generator(
+            g, lpips, coaches.CoachInputs(targets[i], cameras[i], w, masks[i], lms[i]),
+            settings, noise=noise, rng=rng, device=dev, box_cx=box,
+            on_step=lambda step, v: lps.append(v))
+        torch.cuda.synchronize()
+        tuned = trainable_parameters(g)[leaf].detach().clone()
+        with torch.no_grad():
+            for k, v in trainable_parameters(g).items():
+                v.copy_(start[k])
+        return w, steps, lp, tuned, lps, time.perf_counter() - t0
+
+    def compare(label, out, i, ser):
+        w_b, _, tuned_b, steps_b, lps_b, _ = out
+        w, steps, lp, tuned, _, _ = ser
+        errs = (rel_err(w_b[i], w), abs(lps_b[i] - lp) / abs(lp), rel_err(tuned_b[leaf][i], tuned))
+        log(f"{label} image {i}: steps {steps_b[i]} / {steps}, last LPIPS {lps_b[i]:.6f} / "
+            f"{lp:.6f}; errors relative to the largest entry: w {errs[0]:.2e}, LPIPS "
+            f"{errs[1]:.2e}, {leaf} {errs[2]:.2e} (tol {TOL_SYNTH})")
+        check(steps_b[i] == steps and max(errs) <= TOL_SYNTH,
+              f"{label} image {i} differs from the serial path: {errs}")
+
+    out, wall, launches = batched(free)
+    sers = [serial(free, i) for i in range(b)]
+    log(f"batched float32, {b} images ({first_steps} 'mir' + {tune_steps} RotBbox): {wall:.2f} s "
+        f"against {sum(r[-1] for r in sers):.2f} s one by one; launches {launches}")
+    for i in range(b):
+        compare("batched vs serial", out, i, sers[i])
+    # A threshold lane `a` crosses at step k >= 1 and the other lanes never.
+    lps = [r[4] for r in sers]
+    found = [(k, a) for a in range(b) for k in range(1, tune_steps - 1)
+             if lps[a][k] < min(lps[a][:k])
+             and all(lps[a][k] < min(lps[o]) for o in range(b) if o != a)]
+    check(found, f"no threshold that one image reaches early: LPIPS {lps}")
+    k, a = found[0]
+    # Halfway between that value and the lowest that must stay above it, so
+    # that rounding apart from the serial run does not move the stop.
+    above = min([*lps[a][:k], *(v for o in range(b) if o != a for v in lps[o])])
+    settings = dataclasses.replace(free, lpips_threshold=(lps[a][k] + above) / 2)
+    out, wall, _ = batched(settings)
+    steps_b = out[3]
+    log(f"threshold {settings.lpips_threshold:.6f}: steps run {steps_b} (image {a} stops at "
+        f"step {k})")
+    check(steps_b[a] == k + 1 and all(steps_b[o] == tune_steps for o in range(b) if o != a),
+          f"early stop: steps {steps_b}")
+    compare("early-stopped image", out, a, serial(settings, a))
+    del out, sers, model, g, lpips, box
+    torch.cuda.empty_cache()
+
+
+def phase_batch_timing(dev, steps=5):
+    """Per-image seconds a step and peak memory at B = 1, 2, 4 through the
+    batched path, float32 and bfloat16: 'sg' (median after the second
+    step, over B) and a RotBbox cadence of 4 steps (steps 1-4, the fourth a
+    regularizer step, summed, over 4 B), with each batched step's launches,
+    which must equal B = 1's. A cell that does not fit the card's memory is
+    reported as such. Then the device-busy share at B = 4 (profile_step) of
+    a 'sg' step in each dtype and of a bf16 RotBbox regularizer step."""
+    import torch
+
+    from spi_tpu_torch.tools import step_time
+
+    table = {}
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(dev, dtype)
+        pivot = None
+        for b in (1, 2, 4):
+            label = f"batched 'sg' B={b}{tag(dtype)}"
+            (w, noise, _), _, per_step, step_s, steady = drive(
+                label, PATH_KERNELS[dtype], step_time.projection_batch(model, "sg", steps, dev, b))
+            peak = torch.cuda.max_memory_allocated()
+            table[(dtype, "sg", b)] = (steady / b, peak, per_step[-1])
+            if pivot is None:
+                pivot = (w[0], {k: v[0] for k, v in noise.items()})
+            label = f"batched RotBbox B={b}{tag(dtype)}"
+            try:
+                _, _, per_step, step_s, _ = drive(
+                    label, PATH_KERNELS[dtype], step_time.rotbbox_batch(model, pivot, steps, dev, b))
+            except torch.cuda.OutOfMemoryError as e:
+                log(f"{label}: out of device memory ({str(e).splitlines()[0][:160]})")
+                table[(dtype, "rotbbox", b)] = None
+                torch.cuda.empty_cache()
+                continue
+            peak = torch.cuda.max_memory_allocated()
+            cadence = {k: sum(s[k] for s in per_step[1:5]) for k in per_step[1]}
+            table[(dtype, "rotbbox", b)] = (sum(step_s[:4]) / (4 * b), peak, cadence)
+            torch.cuda.empty_cache()
+        for path in ("sg", "rotbbox"):
+            one = table[(dtype, path, 1)]
+            for b in (2, 4):
+                cell = table[(dtype, path, b)]
+                if cell is not None:
+                    check(cell[2] == one[2], f"{path}{tag(dtype)} B={b}: launches {cell[2]} "
+                          f"differ from B=1's {one[2]}")
+        sg4 = table[(dtype, "sg", 4)][0] * 4
+        step_time_b4 = step_time.projection_batch(model, "sg", 3, dev, 4)
+        profile_step(f"batched 'sg'{tag(dtype)} step, B=4", step_time_b4, 1, sg4,
+                     "this phase's median B=4 step time")
+        if dtype == "bfloat16" and table[(dtype, "rotbbox", 4)] is not None:
+            reg = step_time.rotbbox_batch(model, pivot, 5, dev, 4)
+            _, _, _, step_s, _ = drive(f"batched RotBbox B=4{tag(dtype)} (again)",
+                                       PATH_KERNELS[dtype], reg)
+            profile_step(f"batched RotBbox{tag(dtype)} regularizer step, B=4",
+                         step_time.rotbbox_batch(model, pivot, 5, dev, 4), 3, step_s[3],
+                         "its step 4 in an unprofiled run")
+        del model, pivot
+        torch.cuda.empty_cache()
+    log("per image at B = 1, 2, 4 (s a step per image; peak GiB; launches a step or a cadence):")
+    for (dtype, path, b), cell in table.items():
+        if cell is None:
+            log(f"  {dtype:8s} {path:7s} B={b}: out of device memory")
+        else:
+            log(f"  {dtype:8s} {path:7s} B={b}: {cell[0]:.5f} s/step/image, peak "
+                f"{cell[1] / 2**30:.3f} GiB, launches {cell[2]}")
+    return table
+
+
+def phase_cli_batched(dev, n=4, first_steps=3, tune_steps=5):
+    """The inversion CLI with --parallel_images 4 on four synthetic
+    identities (each its own yaw and noise) in bfloat16 (3 'mir' + 5
+    RotBbox steps): every image's results, checkpoint, embedding and
+    images, and the bf16 kernels launched."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from spi_tpu_torch.cli import run_inversion
+    from spi_tpu_torch.ops import _lib
+
+    root = Path(__file__).resolve().parent / "build" / "cli_batched"
+    shutil.rmtree(root, ignore_errors=True)
+    names = [f"synth{i}" for i in range(n)]
+    for i, name in enumerate(names):
+        write_identity(root / "data", name, seed=i, yaw=(0.4, -0.3, 0.25, 0.1)[i % 4])
+    out = root / "out"
+    argv = ["--data_root", str(root / "data"), "--output_root", str(out), "--device", str(dev),
+            "--random_init", "--parallel_images", str(n),
+            "--first_inv_type", "mir", "--first_inv_steps", str(first_steps),
+            "--G_1_type", "RotBbox", "--G_1_step", str(tune_steps), "--pt_rot_lambda", "0.1",
+            "--pt_mirror_rot_lambda", "0.05", "--pt_depth_lambda", "1",
+            "--LPIPS_value_threshold", "-1"]
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = run_inversion.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.launch_counts)
+    log(f"cli --parallel_images {n} bf16: {wall:.1f} s for {n} identities "
+        f"({results[0]['stage1_s']:.2f} s an image by the batch's clock); launches {launches}")
+    for k in BF16_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was never launched on the batched cli path")
+    check([r["name"] for r in results] == names, f"cli results {[r['name'] for r in results]}")
+    (coach,) = os.listdir(out / "checkpoints")
+    for r in results:
+        log(f"cli batched {r['name']}: steps {r['steps_run']}, metrics {r['metrics']}")
+        check(r["steps_run"] == tune_steps and len(r["metrics"]) == 6
+              and all(math.isfinite(v) for v in r["metrics"].values()), f"cli result {r}")
+        for sub, ext in (("checkpoints", "npz"), ("embedding", "npz"), ("image", "jpg"),
+                         ("image_m", "jpg")):
+            check((out / sub / coach / f"{r['name']}.{ext}").exists(),
+                  f"the batched cli wrote no {sub}/{coach}/{r['name']}.{ext}")
+    lines = (out / "experiments" / "metric_log.txt").read_text()
+    check(lines.count("ID: ") == n, "metric_log.txt does not list every image")
+
+
+# Run by `phase_two_processes` as each rank: the inversion CLI, then this
+# process's launch counts as JSON.
+RANK_CODE = """
+import json, sys
+from spi_tpu_torch.cli import run_inversion
+from spi_tpu_torch.ops import _lib
+results = run_inversion.main(sys.argv[1:])
+print("RANK_RESULT " + json.dumps({"names": [r["name"] for r in results],
+                                   "launches": dict(_lib.launch_counts)}), flush=True)
+"""
+
+
+def phase_two_processes(dev, n=3):
+    """`--dataset_block auto` in two processes on the one card (one rank
+    each, gloo, the environment torchrun sets: MASTER_ADDR, MASTER_PORT,
+    RANK, WORLD_SIZE, LOCAL_RANK), the tiny generator in bfloat16 on three
+    synthetic identities: the stripes (2 + 1 images), the global means that
+    rank 0 prints and writes equal to the mean of every image's metrics,
+    the bf16 kernels launched in each process, and both exit 0."""
+    import ast
+    import os
+    import re
+    import shutil
+    import socket
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    root = here / "build" / "two_processes"
+    shutil.rmtree(root, ignore_errors=True)
+    for i in range(n):
+        write_identity(root / "data", f"synth{i}", seed=10 + i, yaw=0.3)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = ["--data_root", str(root / "data"), "--output_root", str(root / "out"),
+            "--device", dev.type, "--tiny", "--random_init", "--dataset_block", "auto",
+            "--first_inv_type", "mir", "--first_inv_steps", "2", "--G_1_type", "RotBbox",
+            "--G_1_step", "2", "--pt_rot_lambda", "0.1", "--pt_mirror_rot_lambda", "0.05",
+            "--pt_depth_lambda", "1", "--LPIPS_value_threshold", "-1"]
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                   WORLD_SIZE="2", LOCAL_RANK=str(rank), PYTHONPATH=str(here),
+                   GLOO_SOCKET_IFNAME="lo")  # gloo on the loopback interface
+        procs.append(subprocess.Popen([sys.executable, "-c", RANK_CODE, *argv], cwd=here,
+                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    outs = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=300)
+            outs.append(out)
+            check(proc.returncode == 0, f"a rank exited {proc.returncode}:\n{err[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    wall = time.perf_counter() - t0
+    per_image, ranks = {}, []
+    for out in outs:
+        for line in out.splitlines():
+            m = re.match(r"(\S+): w .* metrics=(\{.*\})$", line)
+            if m:
+                per_image[m.group(1)] = ast.literal_eval(m.group(2))
+            if line.startswith("RANK_RESULT "):
+                ranks.append(json.loads(line[len("RANK_RESULT "):]))
+    log(f"two processes, --dataset_block auto: {wall:.1f} s; stripes "
+        f"{[r['names'] for r in ranks]}; launches {[r['launches'] for r in ranks]}")
+    check([r["names"] for r in ranks] == [["synth0", "synth1"], ["synth2"]],
+          f"stripes {[r['names'] for r in ranks]}")
+    for r in ranks:
+        for k in BF16_KERNELS:
+            check(r["launches"][k] > 0, f"a rank never launched {k}")
+    m = re.search(r"global metric means over all processes: (\{.*\})", outs[0])
+    check(m is not None, "rank 0 printed no global means")
+    means = ast.literal_eval(m.group(1))
+    (logged,) = (root / "out" / "experiments" / "metric_log_global.txt").read_text().splitlines()
+    check(ast.literal_eval(logged) == means, "metric_log_global.txt differs from the printed means")
+    for k, v in means.items():
+        want = sum(p[k] for p in per_image.values()) / len(per_image)
+        check(abs(v - want) <= 1e-5 * max(abs(want), 1e-3),
+              f"global mean {k} {v} is not the images' mean {want}")
+    log(f"two processes: global means {means} over {sorted(per_image)}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1592,6 +2076,7 @@ def main(argv=None) -> int:
         phase_splat(dev, model, args.parent), *phase_bias_act(dev), *phase_bias_act_bf16(dev),
         phase_win_scatter(dev, args.parent),
         phase_row_gather(dev), phase_row_scatter_add(dev)])
+    phase(2, "kernels under vmap", phase_vmap_kernels, dev)
     phase(3, "tiny synthesis card vs CPU", phase_tiny_synthesis, dev)
     phase(3, "tiny RotBbox step card vs CPU", phase_tiny_rotbbox, dev)
     # 'sg' in turns, float32, bf16, bf16, float32; the first run of each
@@ -1623,6 +2108,11 @@ def main(argv=None) -> int:
     phase(12, "inversion --save_video and run_video on the preprocessed tree",
           phase_user_path, dev, data)
     phase(13, "benchmark line", phase_bench, dev)
+    torch.cuda.empty_cache()
+    phase(14, "batched against serial, float32", phase_batched_vs_serial, dev)
+    phase(15, "batched step time and memory at B = 1, 2, 4", phase_batch_timing, dev)
+    phase(16, "inversion CLI --parallel_images 4", phase_cli_batched, dev)
+    phase(17, "two processes, --dataset_block auto", phase_two_processes, dev)
     for dtype, r in res.items():
         log(f"{dtype}: median s/step after the second: sg {r['sg'][0]:.5f} (in turns: "
             f"{r['sg'][1]:.5f}), mir {r['mir']:.5f}, stage-2 tune {r['tune']:.5f}; RotBbox "

@@ -10,16 +10,30 @@ output tree, npz keys and metric_log.txt).
 
 Computes in bfloat16 (the generator's `compute_dtype`), as spi_tpu's CLI
 does, unless given --fp32. Runs on the card (`--device cuda`, the
-default; raises without a GPU) or on the CPU with `--device cpu`. Not
-ported, each raising NotImplementedError: --parallel_images above 1 and
---dataset_block auto. --save_video renders each tuned generator's orbit
-video into video/<coach>/ (spi_tpu_torch.utils.video).
+default; raises without a GPU) or on the CPU with `--device cpu`.
+--save_video renders each tuned generator's orbit video into
+video/<coach>/ (spi_tpu_torch.utils.video).
+
+Scale-out. --parallel_images B inverts B images at a time in one batched
+program on the card (training/pipeline.py `invert_batch`). Several cards
+are several processes, one card each, under torchrun:
+
+    torchrun --nproc_per_node N -m spi_tpu_torch.cli.run_inversion \
+        --dataset_block auto ...
+
+where `auto` gives each process its stripe of the worklist from its rank
+(parallel/multihost.py); every process then joins one all-gather of its
+metric sums, and rank 0 prints the global means and appends them to
+experiments/metric_log_global.txt.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import warnings
+
+import torch
 
 
 def parse_args(argv=None):
@@ -52,13 +66,16 @@ def parse_args(argv=None):
 
     parser.add_argument("--description", type=str, default=None)
     parser.add_argument("--dataset_block", type=str, default=None,
-                        help="'i/N' worklist slice (images_dataset.py:149-158)")
+                        help="'i/N' worklist slice (images_dataset.py:149-158); 'auto' "
+                             "derives it from the torchrun process group "
+                             "(spi_tpu_torch.parallel.multihost)")
     parser.add_argument("--select_range", type=int, default=None)
     parser.add_argument("--filter_index", type=str, default=None, help="1,2,3")
     parser.add_argument("--save_video", action="store_true", default=False)
     parser.add_argument("--log_snapshot", type=int, default=0,
                         help="save the in-progress reconstruction every N tuning steps; 0 = off")
-    parser.add_argument("--parallel_images", type=int, default=1)
+    parser.add_argument("--parallel_images", type=int, default=1,
+                        help="invert N images at a time in one batched program on the card")
     parser.add_argument("--fp32", action="store_true", default=False,
                         help="disable the bfloat16 compute path (slower, "
                              "reference-exact numerics)")
@@ -72,15 +89,8 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    unported = [
-        (args.parallel_images > 1, "--parallel_images > 1 is not ported: ROADMAP Queue 1 "
-                                   "item 10, scale-out"),
-        (args.dataset_block == "auto", "--dataset_block auto is not ported: ROADMAP Queue 1 "
-                                       "item 10, scale-out; pass i/N"),
-    ]
-    for cond, what in unported:
-        if cond:
-            raise NotImplementedError(what)
+    if args.parallel_images < 1:
+        raise ValueError(f"--parallel_images must be >= 1, got {args.parallel_images}")
 
     from spi_tpu_torch.data.dataset import PTIDataset
     from spi_tpu_torch.models.triplane import (
@@ -91,6 +101,25 @@ def main(argv=None):
     from spi_tpu_torch.training.pipeline import InversionPipeline, PipelineConfig
     from spi_tpu_torch.utils.checkpoint import load_flat_params, load_npz
     from spi_tpu_torch.utils.device import resolve_device
+
+    distributed = False
+    if args.dataset_block == "auto":
+        from spi_tpu_torch.parallel.multihost import host_block, initialize
+
+        # Without a process group every launched process would take block
+        # 1/1, the whole worklist; a single process does so knowingly.
+        distributed = initialize()
+        if not distributed:
+            warnings.warn(
+                "--dataset_block auto: WORLD_SIZE is absent or 1, so no process group was "
+                "started; this process takes the whole worklist (block 1/1). To split it, "
+                "launch with torchrun --nproc_per_node N (or set MASTER_ADDR, MASTER_PORT, "
+                "RANK and WORLD_SIZE), or pass an explicit --dataset_block i/N.")
+        args.dataset_block = host_block()
+        if distributed and torch.device(args.device).type == "cuda" and torch.cuda.is_available():
+            # One card a process: LOCAL_RANK's, shared where there are fewer cards.
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            torch.cuda.set_device(local % torch.cuda.device_count())
 
     dev = resolve_device(args.device)
     compute_dtype = "float32" if args.fp32 else "bfloat16"
@@ -111,7 +140,7 @@ def main(argv=None):
         use_adapt_yaw_range=args.use_adapt_yaw_range,
         load_embedding_coach_name=args.load_embedding_coach_name,
         description=args.description, log_snapshot=args.log_snapshot,
-        save_video=args.save_video,
+        save_video=args.save_video, parallel_images=args.parallel_images,
     )
     dataset = PTIDataset(
         source_root=os.path.join(args.data_root, "crop"),
@@ -129,7 +158,31 @@ def main(argv=None):
         print(f"{r['name']}: w {tuple(r['w'].shape)} stage1={r['stage1_s']:.1f}s "
               f"stage2={r['stage2_s']:.1f}s steps={r['steps_run']} metrics={r['metrics']}",
               flush=True)
+    if distributed:
+        _aggregate(results, pipeline.dirs["experiments"])
     return results
+
+
+def _aggregate(results, experiments_dir):
+    """Global metric means over every process (one all-gather, which every
+    process enters, an empty stripe too); rank 0 prints them and appends
+    them to metric_log_global.txt. Ends the process group."""
+    import torch.distributed as dist
+
+    from spi_tpu_torch.parallel.multihost import aggregate_metrics
+
+    sums: dict[str, float] = {"n": float(len(results))}
+    for r in results:
+        for k, v in r["metrics"].items():
+            sums[k] = sums.get(k, 0.0) + float(v)
+    try:
+        global_means = aggregate_metrics(sums)
+        if dist.get_rank() == 0:
+            print(f"global metric means over all processes: {global_means}", flush=True)
+            with open(os.path.join(experiments_dir, "metric_log_global.txt"), "a") as f:
+                f.write(f"{global_means}\n")
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

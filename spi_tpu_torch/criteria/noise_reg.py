@@ -24,7 +24,9 @@ def noise_regularization(noise: dict):
 
 @torch.no_grad()
 def normalize_noise(noise: dict) -> None:
-    """Zero-mean unit-variance renormalization of each map, in place."""
+    """Zero-mean unit-variance renormalization of each map, in place: over
+    its last two axes, so that (B, H, W) maps of B images are renormalized
+    image by image."""
     for v in noise.values():
-        v.sub_(v.mean())
-        v.mul_(v.square().mean().rsqrt())
+        v.sub_(v.mean(dim=(-2, -1), keepdim=True))
+        v.mul_(v.square().mean(dim=(-2, -1), keepdim=True).rsqrt())

@@ -26,18 +26,25 @@ def _draw(draws, key, shape, kind, device, generator):
     return torch.randn(shape, generator=generator, device=device)
 
 
+def tv_draws(draws: dict | None, n: int, n_points: int = 1000, dev=None, rng=None) -> dict:
+    """`tv_loss`'s draws for `n` point sets: those in `draws`, the rest
+    drawn from `rng` in the order tv_loss uses them."""
+    uniform = _draw(draws, "uniform", (n, n_points, 3), "uniform", dev, rng)
+    perturb = _draw(draws, "perturb", (n, n_points, 3), "normal", dev, rng)
+    directions = _draw(draws, "directions", (n, 2 * n_points, 3), "normal", dev, rng)
+    return {"uniform": uniform, "perturb": perturb, "directions": directions}
+
+
 def tv_loss(generator, ws, n_points: int = 1000, draws: dict | None = None, rng=None,
             planes=None):
     """draws: {'uniform': (N, n, 3) U[0, 1), 'perturb': (N, n, 3) N(0, 1),
     'directions': (N, 2n, 3) N(0, 1)}; what is missing is drawn from
     `rng`. planes: `generator.planes_nhwc(ws)`, where the caller has them."""
-    n, dev = ws.shape[0], ws.device
-    initial = _draw(draws, "uniform", (n, n_points, 3), "uniform", dev, rng) * 2 - 1
-    perturbed = initial + _draw(draws, "perturb", initial.shape, "normal", dev, rng) \
-        * DENSITY_REG_P_DIST
+    d = tv_draws(draws, ws.shape[0], n_points, ws.device, rng)
+    initial = d["uniform"] * 2 - 1
+    perturbed = initial + d["perturb"] * DENSITY_REG_P_DIST
     coords = torch.cat([initial, perturbed], dim=1)
-    directions = _draw(draws, "directions", coords.shape, "normal", dev, rng)
-    _, sigma = generator.sample_mixed(ws, coords, directions, planes=planes)
+    _, sigma = generator.sample_mixed(ws, coords, d["directions"], planes=planes)
     return (sigma[:, :n_points] - sigma[:, n_points:]).abs().mean()
 
 

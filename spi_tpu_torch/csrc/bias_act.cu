@@ -19,6 +19,14 @@
 // The channel of flat element i is (i / trail) % C, so both NCHW tensors
 // (trail = H*W) and the FC / decoder calls (trail = 1) are served; the TPU
 // rule that C be a multiple of 8 does not apply.
+// Batched bias: several images' layers in one launch, each image with its
+// own bias (a vmapped stage-2 step, where every image tunes its own
+// weights; spi_tpu's jax.vmap of the same layer). The bias is (B, C) and
+// the input B images of `img_elems` elements each, so element i reads
+// b[(i / img_elems) * C + (i / trail) % C]. An unbatched call passes
+// img_elems = n (B = 1) and launches the kernels' unbatched instances
+// (kBatched false), which read b[(i / trail) % C] with no per-image
+// arithmetic at all.
 //
 // What bounds it on an H100: bytes. The forward reads x and writes y, the
 // backward reads g and x and writes dx: 8 and 12 B an element in f32, 4
@@ -98,9 +106,17 @@ __device__ __forceinline__ float add_in(float x, float b, const __nv_bfloat16*) 
 
 struct Params {
   unsigned n, c, trail;
+  unsigned img_elems;  // elements per image: n unless the bias is batched
   int act;
   float alpha, gain, clamp;  // clamp < 0: no clamp
 };
+
+// Flat index into the bias of element i.
+template <bool kBatched>
+__device__ __forceinline__ unsigned bias_index(const Params& p, unsigned i) {
+  unsigned ch = (i / p.trail) % p.c;
+  return kBatched ? (i / p.img_elems) * p.c + ch : ch;
+}
 
 template <typename T>
 __device__ __forceinline__ float fwd_one(const Params& p, float x, float b) {
@@ -121,44 +137,58 @@ __device__ __forceinline__ float bwd_one(const Params& p, float g, float x, floa
   return d;
 }
 
-template <typename T>
+template <typename T, bool kBatched>
 __global__ void bias_act_fwd_kernel(const T* __restrict__ x, const T* __restrict__ b,
                                     T* __restrict__ y, Params p) {
   for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < p.n;
        i += gridDim.x * blockDim.x) {
-    store(&y[i], fwd_one<T>(p, load(&x[i]), load(&b[(i / p.trail) % p.c])));
+    store(&y[i], fwd_one<T>(p, load(&x[i]), load(&b[bias_index<kBatched>(p, i)])));
   }
 }
 
-template <typename T>
+template <typename T, bool kBatched>
 __global__ void bias_act_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
                                     const T* __restrict__ b, T* __restrict__ dx, Params p) {
   for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < p.n;
        i += gridDim.x * blockDim.x) {
-    store(&dx[i], bwd_one<T>(p, load(&g[i]), load(&x[i]), load(&b[(i / p.trail) % p.c])));
+    store(&dx[i], bwd_one<T>(p, load(&g[i]), load(&x[i]),
+                             load(&b[bias_index<kBatched>(p, i)])));
   }
 }
 
 // bf16, 8 elements (16 bytes) a thread a step. Element i0 + k's channel is
 // walked from i0's: the position within the trail advances by one, and the
-// channel by one (mod C) each time it wraps. The last n % 8 elements are
-// taken by the grid's first thread.
+// channel by one (mod C) each time it wraps; in the batched form the
+// image's bias row (`bo`) advances by C each time `left`, the elements
+// left in the image, runs out (the unbatched form keeps bo at 0). The last
+// n % 8 elements are taken by the grid's first thread.
 constexpr unsigned kVec = 8;
 
-__device__ __forceinline__ void channel_of(const Params& p, unsigned i, unsigned& ch,
-                                           unsigned& r) {
+struct Walk {
+  unsigned ch, r, bo, left;
+};
+
+template <bool kBatched>
+__device__ __forceinline__ Walk channel_of(const Params& p, unsigned i) {
   unsigned q = i / p.trail;
-  r = i - q * p.trail;
-  ch = q % p.c;
+  if (!kBatched) return Walk{q % p.c, i - q * p.trail, 0u, 0u};
+  unsigned img = i / p.img_elems;
+  return Walk{q % p.c, i - q * p.trail, img * p.c, (img + 1) * p.img_elems - i};
 }
 
-__device__ __forceinline__ void next_channel(const Params& p, unsigned& ch, unsigned& r) {
-  if (++r == p.trail) {
-    r = 0;
-    if (++ch == p.c) ch = 0;
+template <bool kBatched>
+__device__ __forceinline__ void next_channel(const Params& p, Walk& w) {
+  if (++w.r == p.trail) {
+    w.r = 0;
+    if (++w.ch == p.c) w.ch = 0;
+  }
+  if (kBatched && --w.left == 0) {
+    w.bo += p.c;
+    w.left = p.img_elems;
   }
 }
 
+template <bool kBatched>
 __global__ void bias_act_fwd_bf16x8_kernel(const uint4* __restrict__ x,
                                            const __nv_bfloat16* __restrict__ b,
                                            uint4* __restrict__ y, Params p) {
@@ -168,13 +198,12 @@ __global__ void bias_act_fwd_bf16x8_kernel(const uint4* __restrict__ x,
     uint4 xv = x[v], out;
     const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xv);
     __nv_bfloat16* oe = reinterpret_cast<__nv_bfloat16*>(&out);
-    unsigned ch, r;
-    channel_of(p, v * kVec, ch, r);
+    Walk w = channel_of<kBatched>(p, v * kVec);
 #pragma unroll
     for (unsigned k = 0; k < kVec; ++k) {
-      oe[k] = __float2bfloat16_rn(
-          fwd_one<__nv_bfloat16>(p, __bfloat162float(xe[k]), __bfloat162float(b[ch])));
-      next_channel(p, ch, r);
+      oe[k] = __float2bfloat16_rn(fwd_one<__nv_bfloat16>(p, __bfloat162float(xe[k]),
+                                                         __bfloat162float(b[w.bo + w.ch])));
+      next_channel<kBatched>(p, w);
     }
     y[v] = out;
   }
@@ -182,10 +211,12 @@ __global__ void bias_act_fwd_bf16x8_kernel(const uint4* __restrict__ x,
     const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(x);
     __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(y);
     for (unsigned i = n8 * kVec; i < p.n; ++i)
-      store(&ys[i], fwd_one<__nv_bfloat16>(p, load(&xs[i]), load(&b[(i / p.trail) % p.c])));
+      store(&ys[i], fwd_one<__nv_bfloat16>(p, load(&xs[i]),
+                                            load(&b[bias_index<kBatched>(p, i)])));
   }
 }
 
+template <bool kBatched>
 __global__ void bias_act_bwd_bf16x8_kernel(const uint4* __restrict__ g,
                                            const uint4* __restrict__ x,
                                            const __nv_bfloat16* __restrict__ b,
@@ -197,13 +228,13 @@ __global__ void bias_act_bwd_bf16x8_kernel(const uint4* __restrict__ g,
     const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&gv);
     const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xv);
     __nv_bfloat16* oe = reinterpret_cast<__nv_bfloat16*>(&out);
-    unsigned ch, r;
-    channel_of(p, v * kVec, ch, r);
+    Walk w = channel_of<kBatched>(p, v * kVec);
 #pragma unroll
     for (unsigned k = 0; k < kVec; ++k) {
       oe[k] = __float2bfloat16_rn(bwd_one<__nv_bfloat16>(
-          p, __bfloat162float(ge[k]), __bfloat162float(xe[k]), __bfloat162float(b[ch])));
-      next_channel(p, ch, r);
+          p, __bfloat162float(ge[k]), __bfloat162float(xe[k]),
+          __bfloat162float(b[w.bo + w.ch])));
+      next_channel<kBatched>(p, w);
     }
     dx[v] = out;
   }
@@ -213,7 +244,7 @@ __global__ void bias_act_bwd_bf16x8_kernel(const uint4* __restrict__ g,
     __nv_bfloat16* ds = reinterpret_cast<__nv_bfloat16*>(dx);
     for (unsigned i = n8 * kVec; i < p.n; ++i)
       store(&ds[i], bwd_one<__nv_bfloat16>(p, load(&gs[i]), load(&xs[i]),
-                                           load(&b[(i / p.trail) % p.c])));
+                                           load(&b[bias_index<kBatched>(p, i)])));
   }
 }
 
@@ -231,56 +262,84 @@ bool aligned16(const void* a, const void* b, const void* c = nullptr) {
   return ((uintptr_t)a | (uintptr_t)b | (uintptr_t)c) % 16 == 0;
 }
 
-Params params(int n, int c, int trail, int act, float alpha, float gain, float clamp) {
-  return Params{(unsigned)n, (unsigned)c, (unsigned)trail, act, alpha, gain, clamp};
+Params params(int n, int c, int trail, int img_elems, int act, float alpha, float gain,
+              float clamp) {
+  return Params{(unsigned)n, (unsigned)c, (unsigned)trail, (unsigned)img_elems, act, alpha,
+                gain, clamp};
 }
 
 }  // namespace
 
-// clamp < 0 disables clamping. Returns cudaGetLastError() after the launch.
+// clamp < 0 disables clamping. b holds n / img_elems rows of C (one row
+// unless the bias is batched). Returns cudaGetLastError() after the launch.
 extern "C" int spi_bias_act_fwd(const float* x, const float* b, float* y,
-                                int n, int c, int trail, int act, float alpha,
+                                int n, int c, int trail, int img_elems, int act, float alpha,
                                 float gain, float clamp, void* stream) {
-  bias_act_fwd_kernel<float><<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      x, b, y, params(n, c, trail, act, alpha, gain, clamp));
+  Params p = params(n, c, trail, img_elems, act, alpha, gain, clamp);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (img_elems < n) {
+    bias_act_fwd_kernel<float, true><<<grid_for(n), kThreads, 0, s>>>(x, b, y, p);
+  } else {
+    bias_act_fwd_kernel<float, false><<<grid_for(n), kThreads, 0, s>>>(x, b, y, p);
+  }
   return (int)cudaGetLastError();
 }
 
 extern "C" int spi_bias_act_bwd(const float* g, const float* x, const float* b,
-                                float* dx, int n, int c, int trail, int act,
+                                float* dx, int n, int c, int trail, int img_elems, int act,
                                 float alpha, float gain, float clamp,
                                 void* stream) {
-  bias_act_bwd_kernel<float><<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      g, x, b, dx, params(n, c, trail, act, alpha, gain, clamp));
+  Params p = params(n, c, trail, img_elems, act, alpha, gain, clamp);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (img_elems < n) {
+    bias_act_bwd_kernel<float, true><<<grid_for(n), kThreads, 0, s>>>(g, x, b, dx, p);
+  } else {
+    bias_act_bwd_kernel<float, false><<<grid_for(n), kThreads, 0, s>>>(g, x, b, dx, p);
+  }
   return (int)cudaGetLastError();
 }
 
 extern "C" int spi_bias_act_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* b,
-                                     __nv_bfloat16* y, int n, int c, int trail, int act,
-                                     float alpha, float gain, float clamp, void* stream) {
-  Params p = params(n, c, trail, act, alpha, gain, clamp);
+                                     __nv_bfloat16* y, int n, int c, int trail,
+                                     int img_elems, int act, float alpha, float gain,
+                                     float clamp, void* stream) {
+  Params p = params(n, c, trail, img_elems, act, alpha, gain, clamp);
   cudaStream_t s = (cudaStream_t)stream;
-  if (aligned16(x, y)) {
-    bias_act_fwd_bf16x8_kernel<<<grid_for((n + kVec - 1) / kVec), kThreads, 0, s>>>(
-        reinterpret_cast<const uint4*>(x), b, reinterpret_cast<uint4*>(y), p);
+  const bool batched = img_elems < n;
+  const unsigned grid8 = grid_for((n + kVec - 1) / kVec);
+  const uint4* x8 = reinterpret_cast<const uint4*>(x);
+  uint4* y8 = reinterpret_cast<uint4*>(y);
+  if (aligned16(x, y) && batched) {
+    bias_act_fwd_bf16x8_kernel<true><<<grid8, kThreads, 0, s>>>(x8, b, y8, p);
+  } else if (aligned16(x, y)) {
+    bias_act_fwd_bf16x8_kernel<false><<<grid8, kThreads, 0, s>>>(x8, b, y8, p);
+  } else if (batched) {
+    bias_act_fwd_kernel<__nv_bfloat16, true><<<grid_for(n), kThreads, 0, s>>>(x, b, y, p);
   } else {
-    bias_act_fwd_kernel<__nv_bfloat16><<<grid_for(n), kThreads, 0, s>>>(x, b, y, p);
+    bias_act_fwd_kernel<__nv_bfloat16, false><<<grid_for(n), kThreads, 0, s>>>(x, b, y, p);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int spi_bias_act_bwd_bf16(const __nv_bfloat16* g, const __nv_bfloat16* x,
                                      const __nv_bfloat16* b, __nv_bfloat16* dx, int n, int c,
-                                     int trail, int act, float alpha, float gain, float clamp,
-                                     void* stream) {
-  Params p = params(n, c, trail, act, alpha, gain, clamp);
+                                     int trail, int img_elems, int act, float alpha,
+                                     float gain, float clamp, void* stream) {
+  Params p = params(n, c, trail, img_elems, act, alpha, gain, clamp);
   cudaStream_t s = (cudaStream_t)stream;
-  if (aligned16(g, x, dx)) {
-    bias_act_bwd_bf16x8_kernel<<<grid_for((n + kVec - 1) / kVec), kThreads, 0, s>>>(
-        reinterpret_cast<const uint4*>(g), reinterpret_cast<const uint4*>(x), b,
-        reinterpret_cast<uint4*>(dx), p);
+  const bool batched = img_elems < n;
+  const unsigned grid8 = grid_for((n + kVec - 1) / kVec);
+  const uint4* g8 = reinterpret_cast<const uint4*>(g);
+  const uint4* x8 = reinterpret_cast<const uint4*>(x);
+  uint4* dx8 = reinterpret_cast<uint4*>(dx);
+  if (aligned16(g, x, dx) && batched) {
+    bias_act_bwd_bf16x8_kernel<true><<<grid8, kThreads, 0, s>>>(g8, x8, b, dx8, p);
+  } else if (aligned16(g, x, dx)) {
+    bias_act_bwd_bf16x8_kernel<false><<<grid8, kThreads, 0, s>>>(g8, x8, b, dx8, p);
+  } else if (batched) {
+    bias_act_bwd_kernel<__nv_bfloat16, true><<<grid_for(n), kThreads, 0, s>>>(g, x, b, dx, p);
   } else {
-    bias_act_bwd_kernel<__nv_bfloat16><<<grid_for(n), kThreads, 0, s>>>(g, x, b, dx, p);
+    bias_act_bwd_kernel<__nv_bfloat16, false><<<grid_for(n), kThreads, 0, s>>>(g, x, b, dx, p);
   }
   return (int)cudaGetLastError();
 }

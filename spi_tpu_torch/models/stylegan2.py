@@ -6,7 +6,7 @@ follow the reference state_dict, so `load_flat_params` is a one-to-one
 copy. `modulated_conv2d` is the non-fused formulation (scale the
 activations, one shared-weight conv, demodulate after), as in spi_tpu.
 The noise maps `noise_const` are buffers; stage-1 inversion swaps in
-its own optimised tensors (utils/params.replace_noise).
+its own optimised tensors (utils/params.functional_apply).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from spi_tpu_torch.ops import bias_act, conv2d_resample, setup_filter, upsample2d
@@ -54,7 +55,16 @@ class FullyConnected(nn.Module):
 
     def forward(self, x):
         w = self.weight * (self.lr_multiplier / math.sqrt(self.in_features))
+        # An output width that is not a multiple of 8 (the decoder's 1 + 32)
+        # is padded with zero rows for the product and cut after it: under
+        # torch.func.vmap with each image's own weights the product is a
+        # batched matmul, which otherwise runs on an unaligned kernel.
+        pad = -self.out_features % 8
+        if pad:
+            w = F.pad(w, (0, 0, 0, pad))
         x = x @ w.T
+        if pad:
+            x = x[..., :self.out_features]
         b = self.bias
         if b is not None and self.lr_multiplier != 1.0:
             b = b * self.lr_multiplier

@@ -16,6 +16,13 @@ the kernel's rule), against which the kernel is checked.
 
 The kernel is first-order only (its backward is a kernel, not
 differentiable again), which is all inversion needs.
+
+Under torch.func.vmap (several images a step, parallel/mesh.py) the
+autograd Function's vmap rule launches the kernel once for the batch, as
+spi_tpu's `jax.vmap` of the layer does: a shared bias folds the image axis
+into the rows; a bias of each image's own (stage 2 tunes per-image
+weights) takes the kernels' batched-bias form, a (B, C) bias over B
+images. The plain chain needs no rule.
 """
 
 from __future__ import annotations
@@ -149,23 +156,40 @@ def _kernel_dtype(x):
     return x.dtype
 
 
-def bias_act_fwd_cuda(x, b, dim, act_id, alpha, gain, clamp):
-    """Launch the forward kernel: y = clamp(act(x + b) * gain). x and b of
-    one dtype, float32 or bfloat16. `clamp` None disables clamping."""
-    dt = _kernel_dtype(x)
-    _lib.require(x, "x", dtype=dt, align=dt.itemsize)
-    _lib.require(b, "b", dtype=dt, device=x.device, ndim=1, align=dt.itemsize)
+def _kernel_shapes(x, b, dim):
+    """(C, trail, elements a bias row serves) of a kernel call. A 1-D bias
+    (C,) serves all of x; a batched bias (B, C), one row an image, serves
+    x's B leading slices, one each."""
     c, trail = _shape_2d(x, dim)
-    if b.shape[0] != c:
-        raise ValueError(f"bias has {b.shape[0]} entries, dim {dim} has {c}")
+    if b.shape[-1] != c or (b.ndim == 2 and (dim == 0 or x.shape[0] != b.shape[0])):
+        raise ValueError(f"bias of shape {tuple(b.shape)} does not fit dim {dim} of "
+                         f"{tuple(x.shape)}")
     if x.numel() >= 2**31:
         raise ValueError(f"bias_act kernel takes < 2^31 elements, got {x.numel()}")
+    return c, trail, x.numel() // b.shape[0] if b.ndim == 2 else x.numel()
+
+
+def _require_bias(b, dt, device):
+    _lib.require(b, "b", dtype=dt, device=device, align=dt.itemsize)
+    if b.ndim not in (1, 2):
+        raise ValueError(f"b must be (C,) or batched (B, C), got shape {tuple(b.shape)}")
+
+
+def bias_act_fwd_cuda(x, b, dim, act_id, alpha, gain, clamp):
+    """Launch the forward kernel: y = clamp(act(x + b) * gain). x and b of
+    one dtype, float32 or bfloat16. `clamp` None disables clamping. b is
+    (C,), or (B, C) for B images stacked on x's first axis, each with its
+    own bias (the batched-bias form, one launch for the B images)."""
+    dt = _kernel_dtype(x)
+    _lib.require(x, "x", dtype=dt, align=dt.itemsize)
+    _require_bias(b, dt, x.device)
+    c, trail, img_elems = _kernel_shapes(x, b, dim)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
     name = _COUNTS[dt][0]
     err = getattr(_lib.lib(), f"spi_{name}")(
-        x.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel(), c, trail, act_id,
+        x.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel(), c, trail, img_elems, act_id,
         alpha, gain, -1.0 if clamp is None else clamp, _lib.stream_handle(x.device),
     )
     _lib.check(err, name)
@@ -175,23 +199,22 @@ def bias_act_fwd_cuda(x, b, dim, act_id, alpha, gain, clamp):
 
 def bias_act_bwd_cuda(g, x, b, dim, act_id, alpha, gain, clamp):
     """Launch the backward kernel: dx = g * act'(x + b) * gain, zero where
-    the forward clamped. g, x and b of one dtype, float32 or bfloat16."""
+    the forward clamped. g, x and b of one dtype, float32 or bfloat16; b
+    as in `bias_act_fwd_cuda`."""
     dt = _kernel_dtype(x)
     _lib.require(g, "grad", dtype=dt, device=x.device, align=dt.itemsize)
     _lib.require(x, "x", dtype=dt, align=dt.itemsize)
-    _lib.require(b, "b", dtype=dt, device=x.device, ndim=1, align=dt.itemsize)
+    _require_bias(b, dt, x.device)
     if g.shape != x.shape:
         raise ValueError(f"grad shape {tuple(g.shape)} != x shape {tuple(x.shape)}")
-    c, trail = _shape_2d(x, dim)
-    if x.numel() >= 2**31:
-        raise ValueError(f"bias_act kernel takes < 2^31 elements, got {x.numel()}")
+    c, trail, img_elems = _kernel_shapes(x, b, dim)
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx
     name = _COUNTS[dt][1]
     err = getattr(_lib.lib(), f"spi_{name}")(
         g.data_ptr(), x.data_ptr(), b.data_ptr(), dx.data_ptr(), x.numel(), c,
-        trail, act_id, alpha, gain, -1.0 if clamp is None else clamp,
+        trail, img_elems, act_id, alpha, gain, -1.0 if clamp is None else clamp,
         _lib.stream_handle(x.device),
     )
     _lib.check(err, name)
@@ -201,10 +224,14 @@ def bias_act_bwd_cuda(g, x, b, dim, act_id, alpha, gain, clamp):
 
 class _BiasActCuda(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, b, dim, act_id, alpha, gain, clamp):
-        ctx.save_for_backward(x, b)
-        ctx.cfg = (dim, act_id, alpha, gain, clamp)
+    def forward(x, b, dim, act_id, alpha, gain, clamp):
         return bias_act_fwd_cuda(x, b, dim, act_id, alpha, gain, clamp)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, b, *cfg = inputs
+        ctx.save_for_backward(x, b)
+        ctx.cfg = tuple(cfg)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -215,8 +242,23 @@ class _BiasActCuda(torch.autograd.Function):
         db = None
         if ctx.needs_input_grad[1]:
             c, trail = _shape_2d(x, dim)
-            db = dx.reshape(-1, c, trail).sum(dim=(0, 2))
+            # A batched bias sums each image's own rows.
+            db = dx.reshape(b.shape[0] if b.ndim == 2 else 1, -1, c, trail).sum(dim=(1, 3))
+            db = db if b.ndim == 2 else db[0]
         return (dx if ctx.needs_input_grad[0] else None), db, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, b, dim, act_id, alpha, gain, clamp):
+        """Under torch.func.vmap, one launch for the B images: with a shared
+        bias, B folds into x's outer rows; with a batched bias (each image's
+        own, as in a vmapped stage-2 step) the batched-bias form takes the
+        (B, C) bias."""
+        n = info.batch_size
+        x = x.movedim(in_dims[0], 0) if in_dims[0] is not None else x.expand(n, *x.shape)
+        if in_dims[1] is not None:
+            b = b.movedim(in_dims[1], 0).contiguous()
+        out = _BiasActCuda.apply(x.contiguous(), b, dim + 1, act_id, alpha, gain, clamp)
+        return out, 0
 
 
 def bias_act(x, b=None, dim=1, act="linear", alpha=None, gain=None, clamp=None):

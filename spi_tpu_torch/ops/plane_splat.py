@@ -21,6 +21,10 @@ points share a tile; without it a tile is a run of consecutive points.
 per-tile reduction in plain PyTorch, for the CPU tests and for counting
 the reductions a pass issues.
 
+Under torch.func.vmap (several images a step) the Function's vmap rule
+folds the image axis into the tables, so the gather and the splat each
+launch once for the batch.
+
 The coordinates get no gradient: `sample_planes` raises if they need
 one, rather than returning a silent zero as spi_tpu's windowed path did
 (no render of the inversion path differentiates its sample points:
@@ -212,12 +216,7 @@ def splat_cuda(coordinates, g, box_warp: float, h: int, w: int, geom: RayGeom | 
 
 class _SamplePlanes(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, planes, coordinates, box_warp, geom):
-        if ctx.needs_input_grad[1]:
-            raise RuntimeError(
-                "sample_planes computes no gradient for the sample coordinates; "
-                "detach them (the renderer's coarse and importance depths carry none)"
-            )
+    def forward(planes, coordinates, box_warp, geom):
         n, n_planes, hw, c = planes.shape
         h = w = math.isqrt(hw)
         if n_planes != 3 or h * w != hw or coordinates.shape[0] != n:
@@ -227,9 +226,19 @@ class _SamplePlanes(torch.autograd.Function):
         kernel_tiling(geom, n, m)  # raises on a geometry that does not fit the points
         grids = project_onto_planes(coordinates * (2.0 / box_warp))
         out = sample_flat(planes.reshape(n * 3, hw, c), grids.reshape(n * 3, m, 2), h, w)
-        ctx.save_for_backward(coordinates)
-        ctx.geom = (box_warp, h, w, planes.dtype, geom)
         return out.reshape(n, 3, m, c)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        planes, coordinates, box_warp, geom = inputs
+        if ctx.needs_input_grad[1]:
+            raise RuntimeError(
+                "sample_planes computes no gradient for the sample coordinates; "
+                "detach them (the renderer's coarse and importance depths carry none)"
+            )
+        h = math.isqrt(planes.shape[2])
+        ctx.save_for_backward(coordinates)
+        ctx.geom = (box_warp, h, h, planes.dtype, geom)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -241,6 +250,31 @@ class _SamplePlanes(torch.autograd.Function):
         else:
             d = splat_plain(coordinates, g, box_warp, h, w)
         return d.to(dtype), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, planes, coordinates, box_warp, geom):
+        """Under torch.func.vmap: B images' (N, 3, H*W, C) planes and (N, M, 3)
+        points fold into B * N tables of one call, so the forward gather and
+        the backward splat launch once for the whole batch. The ray geometry
+        counts B times the views; a side that is not batched is expanded."""
+        b = info.batch_size
+        planes = _batch_first(planes, in_dims[0], b)
+        coordinates = _batch_first(coordinates, in_dims[1], b)
+        n = planes.shape[1]
+        if geom is not None:
+            geom = dataclasses.replace(geom, n_views=geom.n_views * b)
+        out = _SamplePlanes.apply(planes.reshape(b * n, *planes.shape[2:]),
+                                  coordinates.reshape(b * n, *coordinates.shape[2:]),
+                                  box_warp, geom)
+        return out.reshape(b, n, *out.shape[1:]), 0
+
+
+def _batch_first(x, dim, b):
+    """A vmapped argument with its image axis first: moved there, or
+    expanded to `b` images where the argument is shared."""
+    if dim is None:
+        return x.expand(b, *x.shape)
+    return x.movedim(dim, 0)
 
 
 def sample_planes(planes, coordinates, box_warp: float, geom: RayGeom | None = None):

@@ -14,7 +14,8 @@ yawed by MIR_YAW) or of stage 2 from the pivot of PIVOT_STEPS 'sg' steps
 face mask and landmarks. It prints one line: the median s/step after
 the second step, every step's time, and the peak device memory.
 `chip_smoke.py` times the same workload through `build_model`,
-`projection`, `tuning`, `rotbbox` and `time_steps`, and
+`projection`, `tuning`, `rotbbox` and `time_steps` (several images a
+step through `projection_batch` and `rotbbox_batch`), and
 `tools/bench.py` builds its model and stage 1 from it.
 Run as a file (the second form), it imports `spi_tpu_torch` from
 PYTHONPATH, so it times another checkout's package on the same card
@@ -137,6 +138,60 @@ def rotbbox(model, pivot, steps, dev):
         g, lpips, CoachInputs(target, camera, w, mask, lm), settings, noise=noise,
         rng=torch.Generator(device=dev).manual_seed(RUN_SEEDS["rotbbox"]), device=dev,
         on_step=on_step, box_cx=box_cx)
+
+
+def batch_inputs(model, b, dev, yaw=0.0):
+    """`b` images for the batched workloads: the model's target and b - 1
+    more random targets (seeded), each seen from the canonical camera
+    turned by `yaw`. Returns targets (b, 1, 3, R, R), cameras (b, 1, 25)."""
+    from spi_tpu_torch.utils import camera as cam
+
+    g, _, target, _ = model
+    res = g.cfg.img_resolution
+    more = [torch.tanh(torch.randn(1, 3, res, res, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(TARGET_SEED + i))) for i in range(1, b)]
+    camera = cam.canonical_camera(yaw=yaw, device=dev)
+    return torch.stack([target, *more]), camera[None].expand(b, 1, 25).contiguous()
+
+
+def projection_batch(model, mode, steps, dev, b):
+    """`fn(on_step)` running `steps` steps of projector `mode` for `b` images
+    at once (`project_batch`, one batched step a step; 'mir' from the camera
+    yawed by MIR_YAW), image i drawing from a generator seeded RUN_SEEDS[mode]
+    + i; returns project_batch's (w, noise, dists)."""
+    from spi_tpu_torch.training.projectors import ProjectorSettings, project_batch
+
+    g, lpips, _, _ = model
+    targets, cameras = batch_inputs(model, b, dev, MIR_YAW if mode == "mir" else 0.0)
+    settings = ProjectorSettings(mode=mode, num_steps=steps, w_avg_samples=600)
+    return lambda on_step: project_batch(
+        g, lpips, targets, cameras, settings,
+        rngs=[torch.Generator(device=dev).manual_seed(RUN_SEEDS[mode] + i) for i in range(b)],
+        device=dev, on_step=on_step)
+
+
+def rotbbox_batch(model, pivot, steps, dev, b):
+    """`rotbbox` for `b` images at once (`tune_batch`): each image starts
+    from `pivot` = (w, noise) with its own target (`batch_inputs`), the
+    yawed camera, `synthetic_face`'s mask and landmarks, and a generator
+    seeded RUN_SEEDS['rotbbox'] + i; returns tune_batch's result."""
+    from spi_tpu_torch.criteria.bbox_cx import BoxCXLoss
+    from spi_tpu_torch.training.coaches import CoachInputs, CoachSettings, tune_batch
+
+    g, lpips, _, _ = model
+    w, noise = pivot
+    targets, cameras = batch_inputs(model, b, dev, MIR_YAW)
+    mask, lm = synthetic_face(dev, g.cfg.img_resolution)
+    inputs = CoachInputs(targets, cameras, w[None].expand(b, *w.shape).contiguous(),
+                         mask[None].expand(b, *mask.shape), lm[None].expand(b, *lm.shape))
+    noise_b = {k: v[None].expand(b, *v.shape).contiguous() for k, v in noise.items()}
+    settings = CoachSettings(num_steps=steps, lpips_threshold=-1.0, rot_lambda=0.1,
+                             mirror_rot_lambda=0.05, depth_lambda=1.0, tv_lambda=0.0)
+    box_cx = BoxCXLoss(device=dev)
+    return lambda on_step: tune_batch(
+        g, lpips, inputs, settings, noise=noise_b,
+        rngs=[torch.Generator(device=dev).manual_seed(RUN_SEEDS["rotbbox"] + i)
+              for i in range(b)], device=dev, on_step=on_step, box_cx=box_cx)
 
 
 def time_steps(fn, after_stamp=None):

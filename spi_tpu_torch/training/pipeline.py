@@ -3,11 +3,12 @@ artifacts and metrics (counterpart of spi_tpu/training/pipeline.py; the
 reference coaches' train() loops, base_coach.py + pti_coach.py /
 rot_bbox_cx_coach.py, with the output tree of run_inversion.py:60-79).
 
-Images are inverted one after another. Each starts from the weights the
-generator had when the pipeline was built (stage 2 tunes it in place)
-and draws its randomness from a `torch.Generator` seeded from the run's
-seed and a CRC-32 of the image's name, so that an image inverts alike in
-any run and any order.
+Images are inverted one after another, or with `parallel_images` B > 1
+B at a time in one batched program (`invert_batch`). Each starts from the
+weights the generator had when the pipeline was built (stage 2 tunes it
+in place) and draws its randomness from a `torch.Generator` seeded from
+the run's seed and a CRC-32 of the image's name, so that an image inverts
+alike in any run and any order, alone or in a batch.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from spi_tpu_torch.criteria.id_loss import IDLoss
 from spi_tpu_torch.criteria.lpips import LPIPS
 from spi_tpu_torch.data.dataset import InversionSample, face_mask_from_parsing
 from spi_tpu_torch.models.triplane import TriPlaneGenerator
+from spi_tpu_torch.parallel.mesh import spmd_invert
 from spi_tpu_torch.training import coaches, projectors
 from spi_tpu_torch.utils import camera as cam
 from spi_tpu_torch.utils.checkpoint import (
@@ -37,7 +39,7 @@ from spi_tpu_torch.utils.checkpoint import (
 from spi_tpu_torch.utils.device import module_device, resolve_device
 from spi_tpu_torch.utils.image import save_image
 from spi_tpu_torch.utils.metrics import Metric, MetricLog
-from spi_tpu_torch.utils.params import replace_noise
+from spi_tpu_torch.utils.params import index_tree, replace_noise
 from spi_tpu_torch.utils.video import render_orbit_video
 
 
@@ -70,6 +72,9 @@ class PipelineConfig:
     # Compute dtype of the loss LPIPS's VGG (the generator's lives on its
     # config); the metric's LPIPS stays float32, as spi_tpu's Metric.
     lpips_compute_dtype: str = "float32"
+    # Invert this many images at a time in one batched program
+    # (parallel/mesh.py spmd_invert); 1 = one after another.
+    parallel_images: int = 1
 
     @property
     def coach_name(self) -> str:
@@ -240,8 +245,59 @@ class InversionPipeline:
         return result
 
     def invert_batch(self, samples: list[InversionSample]) -> list[dict]:
-        raise NotImplementedError("parallel_images > 1 is not ported: ROADMAP Queue 1 item 10, "
-                                  "scale-out")
+        """Invert B images in one batched program (`config.parallel_images`;
+        parallel/mesh.py `spmd_invert`): stage 1 and stage 2 run under
+        torch.func.vmap, one launch a layer for the batch, and each image
+        draws from its own generator as `invert_image` does, so that it
+        comes out as it does alone, up to floating-point reassociation.
+
+        As spi_tpu's batch path (spi_tpu/training/pipeline.py:306-392):
+        stage 2 takes `coach_settings(0.2)`, no adaptive yaw range; stage 1
+        takes no foreground mask; the embedding cache is written, not read;
+        BoxCX runs only when every image has a mask and landmarks; each
+        image's `stage1_s` is the batch's time / B and its `stage2_s` 0.
+        Unlike spi_tpu's, stage 2 is skipped for G_1_type 'Inference' or
+        G_1_step 0, as in `invert_image`.
+        """
+        cfg, dev = self.config, self.device
+        self.generator.load_state_dict(self.g_state0)
+        b = len(samples)
+        images = torch.stack([torch.from_numpy(s.image) for s in samples]).to(dev)
+        cameras = torch.stack([torch.from_numpy(s.camera) for s in samples]).to(dev)
+        face_masks = landmarks = None
+        if all(s.mask is not None for s in samples):
+            face_masks = torch.stack([torch.from_numpy(face_mask_from_parsing(s.mask))
+                                      for s in samples]).to(dev)
+        if all(s.landmarks is not None for s in samples):
+            landmarks = torch.stack([torch.from_numpy(s.landmarks) for s in samples]).to(dev)
+        use_boxcx = (face_masks is not None and landmarks is not None
+                     and cfg.G_1_type == "RotBbox" and cfg.pt_mirror_rot_lambda > 0)
+        coach = self.coach_settings(0.2)
+        if cfg.G_1_type not in ("pti", "RotBbox"):
+            coach = dataclasses.replace(coach, num_steps=0)
+        run = spmd_invert(self.generator, self.lpips, self.projector_settings(), coach,
+                          box_cx=self.box_cx if use_boxcx else None, device=dev)
+        t0 = time.time()
+        w_b, noise_b, tuned, steps, _, _ = run(
+            images, cameras, rngs=[self.image_rng(s.name) for s in samples],
+            face_masks=face_masks, landmarks=landmarks)
+        self._sync()
+        per_image_s = (time.time() - t0) / b
+
+        results = []
+        params = dict(self.generator.named_parameters())
+        for i, sample in enumerate(samples):
+            noise = index_tree(noise_b, i)
+            save_flat(os.path.join(self.dirs["embedding"], f"{sample.name}.npz"),
+                      {"w": w_b[i], **{f"noise/{k}": v for k, v in noise.items()}})
+            with torch.no_grad():
+                for k, v in tuned.items():
+                    params[k].copy_(v[i])
+            with replace_noise(self.generator, noise):
+                results.append(self._finalize_image(sample.name, w_b[i], cameras[i], images[i],
+                                                    per_image_s, 0.0, steps[i]))
+        self.generator.load_state_dict(self.g_state0)
+        return results
 
     @torch.no_grad()
     def render(self, w, c):
@@ -266,11 +322,23 @@ class InversionPipeline:
         return out
 
     def run(self, dataset) -> list[dict]:
-        results = []
+        """Invert the dataset's images (at most `max_images_to_invert`): one
+        after another, or in batches of `parallel_images` and then the
+        remainder."""
+        results, batch = [], []
+        b = self.config.parallel_images
         for i, sample in enumerate(dataset):
             if i >= self.config.max_images_to_invert:
                 break
-            results.append(self.invert_image(sample))
+            if b == 1:
+                results.append(self.invert_image(sample))
+                continue
+            batch.append(sample)
+            if len(batch) == b:
+                results.extend(self.invert_batch(batch))
+                batch = []
+        if batch:
+            results.extend(self.invert_batch(batch))
         header = (f"Coach name: {self.config.coach_name}\n"
                   f"first_inv_type: {self.config.first_inv_type}\n"
                   f"first_inv_steps: {self.config.first_inv_steps}\n"

@@ -34,11 +34,15 @@ def create_cam2world_matrix(forward_vector, origin):
     right = -normalize_vecs(torch.linalg.cross(up, forward_vector, dim=-1))
     up = normalize_vecs(torch.linalg.cross(forward_vector, right, dim=-1))
     n = forward_vector.shape[0]
+    # Built by concatenation, not written into an identity in place, so
+    # that it runs under torch.func.vmap with per-image cameras.
+    zero = torch.zeros(n, 1, 3, dtype=forward_vector.dtype, device=forward_vector.device)
     eye = torch.eye(4, dtype=forward_vector.dtype, device=forward_vector.device)
-    rotation = eye.repeat(n, 1, 1)
-    rotation[:, :3, :3] = torch.stack([right, up, forward_vector], dim=-1)
-    translation = eye.repeat(n, 1, 1)
-    translation[:, :3, 3] = origin
+    last_row = eye[3:].expand(n, 1, 4)
+    rotation = torch.cat([torch.cat([torch.stack([right, up, forward_vector], dim=-1),
+                                     zero.transpose(1, 2)], dim=2), last_row], dim=1)
+    translation = torch.cat([torch.cat([eye[:3, :3].expand(n, 3, 3), origin[:, :, None]], dim=2),
+                             last_row], dim=1)
     return translation @ rotation
 
 
@@ -86,12 +90,18 @@ def canonical_camera(yaw: float = 0.0, pitch: float = 0.0, batch_size: int = 1, 
     return pack_camera(lookat_pose(h, v, CANONICAL_LOOKAT), default_intrinsics(device))
 
 
+def draw_uniforms(shape, device=None, generator=None):
+    """A camera sampler's (yaw, pitch) U[0, 1) draws, each of `shape`, in
+    the order the samplers draw them."""
+    return [torch.rand(shape, generator=generator, device=device) for _ in range(2)]
+
+
 def _uniforms(uniforms, shape, device, generator):
     """The sampler's (yaw, pitch) U[0, 1) draws: `uniforms` as given, or two
     draws of `shape` from `generator`."""
     if uniforms is not None:
         return [u.to(device) for u in uniforms]
-    return [torch.rand(shape, generator=generator, device=device) for _ in range(2)]
+    return draw_uniforms(shape, device, generator)
 
 
 def sample_camera(batch_size: int = 1, yaw_range: float = 0.35, pitch_range: float = 0.25,

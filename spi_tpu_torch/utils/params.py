@@ -39,6 +39,74 @@ def replace_noise(module: nn.Module, noise: dict[str, torch.Tensor]):
             owner._buffers[attr] = value
 
 
+class _Apply(nn.Module):
+    """Runs fn(*args, **kwargs) as its forward, with `module` registered
+    under it so that functional_call can stand tensors in for its state."""
+
+    def __init__(self, module: nn.Module, fn):
+        super().__init__()
+        self.module = module
+        self.fn = fn
+
+    def forward(self, *args, **kwargs):
+        return self.fn(*args, **kwargs)
+
+
+def functional_apply(module: nn.Module, tensors: dict[str, torch.Tensor], fn, *args, **kwargs):
+    """fn(*args, **kwargs) (typically a method of `module`) with `tensors`,
+    by dotted name, standing in for those parameters and buffers of
+    `module`: `torch.func.functional_call`, the functional form of
+    `replace_noise`. No tensor of the module is written, so `tensors` may
+    be batched under `torch.func.vmap`: each image's noise maps (handed in
+    as buffers) or its own tuned weights. Names that are neither a
+    parameter nor a buffer of the module raise."""
+    known = {k for k, _ in itertools.chain(module.named_parameters(), module.named_buffers())}
+    unknown = set(tensors) - known
+    if unknown:
+        raise KeyError(f"not a parameter or buffer of the module: {sorted(unknown)[:4]}")
+    return torch.func.functional_call(
+        _Apply(module, fn), {f"module.{k}": v for k, v in tensors.items()}, args, kwargs,
+        tie_weights=False)
+
+
+def vmap_strict(fn, in_dims=0):
+    """`torch.func.vmap(fn, in_dims)` with PyTorch's per-image fallback off
+    while it runs: an operator without a batching rule raises rather than
+    quietly looping over the images, so a batched step is one launch a
+    layer or an error."""
+    batched = torch.func.vmap(fn, in_dims=in_dims)
+
+    def run(*args):
+        before = torch._C._functorch._is_vmap_fallback_enabled()
+        torch._C._functorch._set_vmap_fallback_enabled(False)
+        try:
+            return batched(*args)
+        finally:
+            torch._C._functorch._set_vmap_fallback_enabled(before)
+
+    return run
+
+
+def stack_trees(trees):
+    """Stack same-structure nests of dicts, lists and tuples of tensors
+    along a new leading image axis."""
+    first = trees[0]
+    if torch.is_tensor(first):
+        return torch.stack(trees)
+    if isinstance(first, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
+    return type(first)(stack_trees(list(parts)) for parts in zip(*trees))
+
+
+def index_tree(tree, i: int):
+    """Image i of a nest with a leading image axis."""
+    if torch.is_tensor(tree):
+        return tree[i]
+    if isinstance(tree, dict):
+        return {k: index_tree(v, i) for k, v in tree.items()}
+    return type(tree)(index_tree(v, i) for v in tree)
+
+
 def init_noise_like(module: nn.Module, generator=None) -> dict[str, torch.Tensor]:
     """Fresh standard-normal noise maps, one per buffer, drawn in sorted
     name order (w_projector.py:58-60)."""
@@ -62,8 +130,10 @@ def cast_call(module: nn.Module, dtype: torch.dtype, *args, **kwargs):
     buffers cast to `dtype` (spi_tpu's `_cast` of a parameter subtree): the
     module keeps its float32 master weights, and their gradients come back
     float32 through the casts. The buffers read are those in place at the
-    call, so noise maps swapped in by `replace_noise` are cast too.
-    float32 calls the module as it is."""
+    call, so noise maps swapped in by `replace_noise` are cast too, and
+    under `functional_apply` (inside `torch.func.vmap` too) the tensors it
+    stands in, each image's own, are the ones cast. float32 calls the
+    module as it is."""
     if dtype == torch.float32:
         return module(*args, **kwargs)
     tensors = {k: v.to(dtype) if v.is_floating_point() else v

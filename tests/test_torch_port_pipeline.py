@@ -10,8 +10,9 @@ files against spi_tpu's.
   port reads an embedding npz that spi_tpu's pipeline wrote;
 - PTIDataset (with its resume filter), the mask and image helpers and
   the perception bundle's sections against spi_tpu's;
-- the parts that are not ported (--parallel_images above 1, --dataset_block
-  auto) raise NotImplementedError.
+- the scale-out flags, which raised NotImplementedError before they were
+  ported, run (--parallel_images above 1, --dataset_block auto; their
+  agreement with the serial path is tests/test_torch_port_parallel.py's).
 
 Files are compared key for key and value for value (exact).
 """
@@ -32,6 +33,7 @@ from spi_tpu_torch.cli import run_inversion
 from spi_tpu_torch.data import dataset as pdata
 from spi_tpu_torch.models import TriPlaneGenerator, tiny_test_config
 from spi_tpu_torch.training.pipeline import InversionPipeline, PipelineConfig
+from spi_tpu_torch.utils.camera import canonical_camera
 from spi_tpu_torch.utils.checkpoint import split_perception
 from spi_tpu_torch.utils.params import extract_noise
 from torch_threads import few_torch_threads  # noqa: F401
@@ -219,16 +221,36 @@ def test_perception_bundle_sections():
 
 @pytest.mark.parametrize("flag", [["--fp32", "--parallel_images", "2"],
                                   ["--fp32", "--dataset_block", "auto"]])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        run_inversion.main(["--data_root", "unused", "--device", "cpu", "--tiny", *flag])
+def test_unported_flags_raise(flag, tmp_path, monkeypatch):
+    """The flags that raised NotImplementedError before scale-out was ported
+    now run: over an empty worklist the CLI returns no result (`auto` in a
+    single process with its warning)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    argv = ["--data_root", str(tmp_path), "--output_root", str(tmp_path / "out"),
+            "--device", "cpu", "--tiny", "--random_init", *flag]
+    if "auto" in flag:
+        with pytest.warns(UserWarning, match="whole worklist"):
+            assert run_inversion.main(argv) == []
+    else:
+        assert run_inversion.main(argv) == []
 
 
 def test_invert_batch_raises(tmp_path):
+    """invert_batch, once a stub that raised, inverts two images in one
+    batched program: one result each, in order, with their own draws."""
     pg = TriPlaneGenerator(tiny_test_config(), device="cpu")
-    pp = InversionPipeline(pg, PipelineConfig(output_root=str(tmp_path)), device="cpu")
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        pp.invert_batch([None, None])
+    cfg = PipelineConfig(output_root=str(tmp_path), first_inv_type="sgw+", first_inv_steps=2,
+                         G_1_type="Inference", parallel_images=2)
+    pp = InversionPipeline(pg, cfg, device="cpu")
+    rs = np.random.RandomState(0)
+    cam = canonical_camera().numpy().reshape(1, 25)
+    samples = [pdata.InversionSample(name=f"img{i}",
+                                     image=np.tanh(rs.randn(1, 3, 128, 128)).astype(np.float32),
+                                     camera=cam) for i in range(2)]
+    results = pp.invert_batch(samples)
+    assert [r["name"] for r in results] == ["img0", "img1"]
+    assert all(r["steps_run"] == 0 for r in results)
+    assert not torch.equal(results[0]["w"], results[1]["w"])
     assert isinstance(pp.image_rng("a"), torch.Generator)
 
 

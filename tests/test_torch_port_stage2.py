@@ -242,12 +242,13 @@ def test_tune_generator_renders_with_stage1_noise(monkeypatch):
 
 
 def test_tune_generator_rejects_unported_terms():
-    """Every stage-2 term and bfloat16 compute are ported; what stage 2
-    still lacks, several images at once, raises at the CLI."""
+    """Every stage-2 term, bfloat16 compute and several images at once are
+    ported (tests/test_torch_port_parallel.py); what the CLI still refuses
+    is a batch of fewer than one image."""
     from spi_tpu_torch.cli import run_inversion
 
-    with pytest.raises(NotImplementedError, match="parallel"):
-        run_inversion.main(["--data_root", "unused", "--device", "cpu", "--parallel_images", "2"])
+    with pytest.raises(ValueError, match="parallel_images"):
+        run_inversion.main(["--data_root", "unused", "--device", "cpu", "--parallel_images", "0"])
 
 
 def test_coach_settings_match_jax():
