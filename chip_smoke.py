@@ -64,16 +64,40 @@ Phases (any failure exits non-zero):
      identities in bfloat16;
  17. --dataset_block auto in two processes on the card (gloo, the
      environment torchrun sets), the tiny generator on three identities:
-     the stripes and the global metric means.
+     the stripes and the global metric means;
+ 18. CLIP-guided editing at full width in float32: twin ffhq512_128_config
+     generators and ViT-B/32 + ViT-B/16 at their published widths (seeded
+     random weights), batch 2, the CLI's defaults (direction term only, the
+     stand-in tokenizer): build_states' seconds, 6 ZSSGAN steps (median
+     s/step after the second, peak GiB, launches a step of the splat and
+     both bias_act kernels, which each step launches: the forward in both
+     renders and the mapping, the backward and the splat in the trainable
+     render's backward), only the masked leaves moved, the frozen twin
+     bitwise unchanged, finite losses; one more step under torch.profiler
+     (device time by kind, CLIP's softmax and LayerNorm apart, and the
+     busy share); one --ide3d step, which must move ToRGB;
+ 19. the editing CLIs: cli/run_editing.py --random_init at full width (3
+     steps, sample grids at steps 0 and 2, a final.npz with every generator
+     key that loads into the port's TriPlaneGenerator; the splat and both
+     bias_act kernels launched), then cli/generate_edit_videos.py at --size
+     1024 on two seeded random 2D StyleGAN2 checkpoints written by the
+     phase (four --ckpt, for the combined video's square grid), 8 unedited
+     frames: the videos or their fallbacks, the bias_act forward kernel
+     launched.
 Phase 2 also holds the splat and both bias_act kernels (f32 and bf16, a
 batched and a shared bias) under torch.func.vmap against their plain
 versions under the same vmap and a loop over the images: one launch each
 for the batch.
 Phase 3 also holds one tiny_test_config RotBbox step (all four
 regularizers, the mirror term on) on the card against the CPU: its LPIPS
-and every weight gradient, in both dtypes.
+and every weight gradient, in both dtypes; and one tiny ZSSGAN step
+(tiny_test_config twins with noise strengths 0.1, tiny_test_clip, batch
+2, the same injected draws: z, each render's random noise maps and
+renderer draws), which launches the splat and both bias_act kernels: the
+loss and every trained leaf's gradient and value to TOL_SYNTH, every other
+leaf bitwise unchanged on both.
 
-Each path (phases 3, 4, 6, 7, 9, 10, 12-17 and each tool) runs with the launch
+Each path (phases 3, 4, 6, 7, 9, 10, 12-19 and each tool) runs with the launch
 counts set to 0 just before it and fails unless each kernel it is meant
 to launch was launched: a bfloat16 path the bias_act kernels' bf16 forms.
 Prints the card's name and power limit, one `{"kernels": [...]}` line
@@ -965,6 +989,85 @@ def phase_tiny_rotbbox(dev):
     check_bf16("tiny RotBbox weight gradients", grads, cpu_g, ref_g)
 
 
+def tiny_zssgan_step(device, draws=None):
+    """One ZSSGAN step (tiny_test_config twins with noise strengths 0.1,
+    tiny_test_clip, batch 2, the stand-in tokenizer) on `device`, from the
+    same seeded weights. draws: the step's draws (z, each render's noise
+    maps and renderer draws), else drawn on the CPU from a generator
+    seeded 7. Returns (loss, {trained leaf: value after the step}, {trained
+    leaf: gradient}, {leaf: value before}, {leaf: value after}, launches,
+    draws), all on the CPU."""
+    import torch
+
+    from spi_tpu_torch.cli.run_editing import CRCTokenizer
+    from spi_tpu_torch.editing import DirectionalCLIPLoss, EditingSettings, ZSSGANTrainer
+    from spi_tpu_torch.models import TriPlaneGenerator, tiny_test_config
+    from spi_tpu_torch.models.perception.clip import CLIP, tiny_test_clip
+    from spi_tpu_torch.ops import _lib
+
+    g = TriPlaneGenerator(tiny_test_config(), device=device, seed=0)
+    with torch.no_grad():
+        for name, t in g.named_parameters():
+            if name.endswith("noise_strength"):
+                t.fill_(0.1)
+    loss = DirectionalCLIPLoss(CLIP(tiny_test_clip(), device=device, seed=1))
+    tr = ZSSGANTrainer(g, {"tiny": loss}, {"tiny": 1.0}, EditingSettings(batch=2), device=device)
+    tr.build_states(CRCTokenizer(tiny_test_clip().vocab_size))
+    if draws is None:
+        draws = tr.draw(2, torch.Generator().manual_seed(7))
+    before = {k: v.detach().cpu().clone() for k, v in tr.trainable.state_dict().items()}
+    counts = dict(_lib.launch_counts)
+    value = float(tr.step(draws))
+    launched = {k: _lib.launch_counts[k] - counts[k] for k in counts}
+    after = {k: v.detach().cpu() for k, v in tr.trainable.state_dict().items()}
+    trained = {k: p for k, p in tr.trainable.named_parameters() if k in tr.mask}
+    check(all(torch.equal(v.cpu(), before[k]) for k, v in tr.frozen.state_dict().items()),
+          f"{device}: the frozen twin moved")
+    return (value, {k: after[k] for k in trained}, {k: p.grad.cpu() for k, p in trained.items()},
+            before, after, launched, draws)
+
+
+def phase_tiny_zssgan(dev):
+    """Card (kernels) vs CPU (plain versions): one tiny ZSSGAN step with
+    random noise on the same draws: the loss and every trained leaf's
+    gradient to TOL_SYNTH of its largest entry; on each side every trained
+    leaf moved by Adam's first step of its own gradient, lr g / (|g| +
+    eps), to TOL_SYNTH of lr, and every other leaf bitwise unchanged. The
+    leaves are not compared across the two sides: dividing by |g| + eps
+    turns a gradient element near eps = 1e-8, far below TOL_SYNTH of its
+    leaf's largest gradient, into an update that may differ by up to a
+    quarter of that element's own relative error (3.0e-3 of lr on one bias
+    in a run on an H100); the cross-device leaf error is logged."""
+    from spi_tpu_torch.editing import EditingSettings
+
+    adam = EditingSettings().adam
+    ref_loss, ref_leaves, ref_grads, before, after, cpu_launched, draws = tiny_zssgan_step("cpu")
+    loss, leaves, grads, card_before, card_after, launched, _ = tiny_zssgan_step(dev, draws)
+    check(not any(cpu_launched.values()), f"CPU run launched kernels: {cpu_launched}")
+    check(all(launched[k] for k in INVERSION_KERNELS), f"card run skipped a kernel: {launched}")
+    check(set(grads) == set(ref_grads), "the card and the CPU train other leaves")
+    for side, b, a, g in (("CPU", before, after, ref_grads), ("card", card_before, card_after,
+                                                               grads)):
+        frozen_moved = [k for k in b if k not in g and not bool((a[k] == b[k]).all())]
+        check(not frozen_moved, f"{side}: a leaf outside the mask moved: {frozen_moved[:4]}")
+        step_err = max(float((a[k] - (b[k] - adam["lr"] * g[k] / (g[k].abs() + adam["eps"])))
+                             .abs().max()) / adam["lr"] for k in g)
+        log(f"tiny ZSSGAN {side}: the trained leaves moved by Adam's first step to "
+            f"{step_err:.2e} of lr")
+        check(step_err <= TOL_SYNTH, f"tiny ZSSGAN {side}: the update is not Adam's first step")
+    errs = sorted(((rel_err(grads[k], ref_grads[k]), k) for k in ref_grads), reverse=True)
+    leaf_errs = sorted(((rel_err(leaves[k], ref_leaves[k]), k) for k in ref_leaves),
+                       reverse=True)
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    log(f"tiny ZSSGAN step card vs CPU: loss {loss:.6f} vs {ref_loss:.6f} (rel {loss_err:.2e}); "
+        f"{len(ref_grads)} trained leaves' gradients, the worst " + ", ".join(
+            f"{k} {e:.2e}" for e, k in errs[:4]) + f" (tol {TOL_SYNTH}); the leaves after the "
+        f"step, the worst {leaf_errs[0][1]} {leaf_errs[0][0]:.2e}; launches {launched}")
+    check(loss_err <= TOL_SYNTH, f"tiny ZSSGAN loss disagrees: {loss_err:.3e}")
+    check(all(math.isfinite(e) and e <= TOL_SYNTH for e, _ in errs),
+          f"tiny ZSSGAN gradient of {errs[0][1]} disagrees: {errs[0][0]:.3e}")
+
+
 def drive(label, kernels, fn):
     """Run `fn(on_step)` (a workload of spi_tpu_torch/tools/step_time.py)
     with every launch count at 0 and the peak memory reset just before it;
@@ -1040,6 +1143,7 @@ CONV_OR_MATMUL = ("conv", "implicit", "wgrad", "dgrad", "gemm", "gemv", "xmma", 
 TENSOR_CORE = ("bf16", "f16", "tf32", "s16816", "s1688", "hmma", "gmma", "tensorop", "wmma")
 KINDS = (
     ("plane_splat", "splat kernel"), ("bias_act", "bias_act kernels"),
+    ("softmax", "softmax (CLIP attention)"), ("layer_norm", "layer norm (CLIP)"),
     ("fft", "convolution (FFT)"), ("float2", "convolution (FFT)"),
     ("conv", "convolution"), ("implicit", "convolution"), ("wgrad", "convolution"),
     ("dgrad", "convolution"), ("gemm", "matmul"), ("gemv", "matmul"),
@@ -2040,6 +2144,151 @@ def phase_two_processes(dev, n=3):
     log(f"two processes: global means {means} over {sorted(per_image)}")
 
 
+EDIT_CLIPS = (("ViT-B/32", "vit_b32"), ("ViT-B/16", "vit_b16"))
+
+
+def phase_editing(dev, num_steps=6):
+    """CLIP-guided editing at full width in float32, the CLI's defaults:
+    twin ffhq512_128_config generators and ViT-B/32 + ViT-B/16 at their
+    published widths (seeded random weights), batch 2, the direction term
+    only, the stand-in tokenizer. `num_steps` steps timed with the launch
+    counts from 0; only the masked leaves move, the frozen twin is bitwise
+    unchanged, the losses are finite. One more step profiled; one IDE3D
+    step moves ToRGB."""
+    import zlib
+
+    import torch
+
+    from spi_tpu_torch.cli.run_editing import CRCTokenizer
+    from spi_tpu_torch.editing import (
+        DirectionalCLIPLoss,
+        EditingSettings,
+        IDE3DZSSGANTrainer,
+        ZSSGANTrainer,
+    )
+    from spi_tpu_torch.models import TriPlaneGenerator, ffhq512_128_config
+    from spi_tpu_torch.models.perception import clip as clip_models
+
+    t0 = time.perf_counter()
+    frozen = TriPlaneGenerator(ffhq512_128_config(), device=dev, seed=0)
+    losses = {name: DirectionalCLIPLoss(clip_models.CLIP(
+        getattr(clip_models, config_name)(), device=dev, seed=zlib.crc32(name.encode()) % 2**31))
+        for name, config_name in EDIT_CLIPS}
+    weights = {name: 1.0 for name in losses}
+    trainer = ZSSGANTrainer(frozen, losses, weights, EditingSettings(), device=dev, seed=2)
+    torch.cuda.synchronize()
+    n_clip = sum(p.numel() for loss in losses.values() for p in loss.model.parameters())
+    log(f"editing: twins and {n_clip} CLIP weights built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    states = trainer.build_states(CRCTokenizer(clip_models.vit_b32().vocab_size))
+    torch.cuda.synchronize()
+    log(f"editing: build_states {time.perf_counter() - t0:.3f} s for {len(states)} models "
+        f"(32 text encodes of 79 prompts each a model)")
+    frozen_before = {k: v.clone() for k, v in frozen.state_dict().items()}
+    start = {k: v.clone() for k, v in trainer.trainable.state_dict().items()}
+
+    def steps(n, on_step):
+        values = []
+        for i in range(n):
+            values.append(trainer.step())
+            on_step(i, values[-1])
+        return [float(v) for v in values]
+
+    values, launches, per_step, _, steady = drive(
+        "editing", INVERSION_KERNELS, lambda on_step: steps(num_steps, on_step))
+    check(all(math.isfinite(v) for v in values), f"editing losses {values}")
+    moved = {k for k, v in trainer.trainable.state_dict().items() if not torch.equal(v, start[k])}
+    check(moved and moved <= trainer.mask, f"editing: leaves outside the mask moved: "
+          f"{sorted(moved - trainer.mask)[:4]}")
+    check(all(torch.equal(v, frozen_before[k]) for k, v in frozen.state_dict().items()),
+          "editing: the frozen twin moved")
+    log(f"editing: losses {values}; {len(moved)} of {len(trainer.mask)} masked leaves moved "
+        f"(the rest are noise_const buffers); launches a step {per_step[-1]}")
+    profile_step("editing step", lambda on_step: steps(3, on_step), 1, steady,
+                 "this phase's median step time")
+    ide3d = IDE3DZSSGANTrainer(frozen, losses, weights, EditingSettings(), device=dev, seed=3)
+    ide3d.states = states
+    torgb = {k: v.clone() for k, v in ide3d.trainable.state_dict().items()
+             if ".torgb." in k and k in ide3d.mask}
+    value = float(ide3d.step())
+    after = ide3d.trainable.state_dict()
+    torgb_moved = [k for k, v in torgb.items() if not torch.equal(after[k], v)]
+    log(f"editing --ide3d: loss {value:.6f}; {len(torgb_moved)} of {len(torgb)} ToRGB leaves moved")
+    check(math.isfinite(value) and torgb_moved, "editing --ide3d: ToRGB did not move")
+    return steady
+
+
+def phase_editing_clis(dev, iters=3, frames=8, size=1024):
+    """cli/run_editing.py --random_init at full width (3 steps, samples at 0
+    and 2): the sample grids, and a final.npz with every generator key that
+    loads into the port's TriPlaneGenerator; then
+    cli/generate_edit_videos.py at --size 1024 on two seeded random 2D
+    StyleGAN2 checkpoints written here (four --ckpt, two each, the combined
+    video's square grid), --unedited_frames 8: the videos or their
+    fallbacks, and the bias_act forward kernel launched."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from spi_tpu_torch.cli import generate_edit_videos, run_editing
+    from spi_tpu_torch.models import TriPlaneGenerator, ffhq512_128_config
+    from spi_tpu_torch.models.stylegan2 import Generator, seeded_init
+    from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.utils.checkpoint import load_flat_params, load_npz, module_flat, save_flat
+
+    root = Path(__file__).resolve().parent / "build" / "edit_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_editing.main(["--frozen_gen_ckpt", "unused", "--output_dir", str(root / "edit"),
+                            "--random_init", "--iter", str(iters), "--output_interval", "2",
+                            "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.launch_counts)
+    log(f"run_editing: {wall:.1f} s ({res['states_s']:.2f} s text states, {res['steps_s']:.2f} s "
+        f"for {iters} steps with samples); losses {res['losses']}; launches {launches}")
+    for k in INVERSION_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was never launched by run_editing")
+    check([Path(p).name for p in res["samples"]] == ["dst_000000.jpg", "dst_000002.jpg"]
+          and all(Path(p).exists() for p in res["samples"]), f"samples {res['samples']}")
+    g = TriPlaneGenerator(ffhq512_128_config(), device=dev)
+    flat = load_npz(res["checkpoint"])
+    check(set(flat) == set(g.state_dict()), "final.npz lacks generator keys")
+    load_flat_params(g, flat)
+    del g, res
+
+    ckpts = []
+    for seed in (0, 1):
+        gen = Generator(512, 0, 512, size, 3, channel_base=32768, channel_max=512, device=dev)
+        seeded_init(gen, seed)
+        ckpts.append(str(root / f"domain{seed}.npz"))
+        save_flat(ckpts[-1], module_flat(gen))
+    latent = str(root / "latent.npy")
+    np.save(latent, np.random.default_rng(0).normal(size=(1, gen.num_ws, 512))
+            .astype(np.float32))
+    del gen
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = generate_edit_videos.main([
+        "--ckpt", ckpts[0], ckpts[1], ckpts[1], ckpts[0], "--out_dir", str(root / "videos"),
+        "--source_latent", latent, "--unedited_frames", str(frames), "--size", str(size),
+        "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.launch_counts)
+    log(f"generate_edit_videos: {wall:.1f} s for 4 x {frames} frames and {frames} blended at "
+        f"{size}^2; files {[str(Path(v).relative_to(root)) for v in res['videos']]}; "
+        f"launches {launches}")
+    check(launches["bias_act_fwd"] > 0, "generate_edit_videos launched no bias_act forward")
+    check(all(Path(v).exists() for v in res["videos"]) and len(res["videos"]) == 6,
+          f"videos {res['videos']}")
+    check(len(res["blended"]) == frames and res["blended"][0].shape == (size, size, 3),
+          "generate_edit_videos: blended frames")
+    check(not np.array_equal(res["frames"][0][0], res["frames"][1][0]),
+          "generate_edit_videos: two domains rendered alike")
+    shutil.rmtree(root / "videos", ignore_errors=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2079,6 +2328,7 @@ def main(argv=None) -> int:
     phase(2, "kernels under vmap", phase_vmap_kernels, dev)
     phase(3, "tiny synthesis card vs CPU", phase_tiny_synthesis, dev)
     phase(3, "tiny RotBbox step card vs CPU", phase_tiny_rotbbox, dev)
+    phase(3, "tiny ZSSGAN step card vs CPU", phase_tiny_zssgan, dev)
     # 'sg' in turns, float32, bf16, bf16, float32; the first run of each
     # gives the pivot and the launch counts.
     runs = {"float32": [], "bfloat16": []}
@@ -2113,10 +2363,16 @@ def main(argv=None) -> int:
     phase(15, "batched step time and memory at B = 1, 2, 4", phase_batch_timing, dev)
     phase(16, "inversion CLI --parallel_images 4", phase_cli_batched, dev)
     phase(17, "two processes, --dataset_block auto", phase_two_processes, dev)
+    torch.cuda.empty_cache()
+    edit_s = phase(18, "CLIP-guided editing at full width, float32", phase_editing, dev)
+    torch.cuda.empty_cache()
+    phase(19, "the editing CLIs", phase_editing_clis, dev)
     for dtype, r in res.items():
         log(f"{dtype}: median s/step after the second: sg {r['sg'][0]:.5f} (in turns: "
             f"{r['sg'][1]:.5f}), mir {r['mir']:.5f}, stage-2 tune {r['tune']:.5f}; RotBbox "
             f"regularizer steps {r['rotbbox'][0]:.5f}, reconstruction steps {r['rotbbox'][1]:.5f}")
+    log(f"editing (float32, batch 2, ViT-B/32 + ViT-B/16): median s/step after the second "
+        f"{edit_s:.5f}")
     for k in kernels:  # launches on the inversion ('sg') path of the kernel's dtype
         dtype = "bfloat16" if k["name"].endswith("_bf16") else "float32"
         k["launches"] = res[dtype]["launches"][k["name"]]

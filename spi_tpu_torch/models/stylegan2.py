@@ -6,7 +6,10 @@ follow the reference state_dict, so `load_flat_params` is a one-to-one
 copy. `modulated_conv2d` is the non-fused formulation (scale the
 activations, one shared-weight conv, demodulate after), as in spi_tpu.
 The noise maps `noise_const` are buffers; stage-1 inversion swaps in
-its own optimised tensors (utils/params.functional_apply).
+its own optimised tensors (utils/params.functional_apply). Under
+`noise_mode="random"` every call takes fresh (N, 1, R, R) maps, keyed by
+the name of the `noise_const` buffer each one stands in for
+(`SynthesisNetwork.draw_noise`); CLIP-guided editing renders so.
 """
 
 from __future__ import annotations
@@ -126,13 +129,20 @@ class SynthesisLayer(nn.Module):
                                                self.noise_const.device))
                 self.noise_strength.zero_()
 
-    def forward(self, x, w, noise_mode="const", gain=1.0):
-        if noise_mode not in ("const", "none"):
-            raise ValueError(f"noise_mode must be 'const' or 'none', got {noise_mode!r}")
+    def forward(self, x, w, noise_mode="const", gain=1.0, noise=None):
+        """noise: this layer's (N, 1, R, R) map under noise_mode='random'."""
+        if noise_mode not in ("const", "none", "random"):
+            raise ValueError(f"noise_mode must be 'const', 'none' or 'random', "
+                             f"got {noise_mode!r}")
         styles = self.affine(w)
-        noise = None
-        if self.use_noise and noise_mode == "const":
+        if not self.use_noise or noise_mode == "none":
+            noise = None
+        elif noise_mode == "const":
             noise = self.noise_const * self.noise_strength
+        elif noise is None:
+            raise ValueError("noise_mode='random' needs this layer's noise map")
+        else:
+            noise = noise.to(x.dtype) * self.noise_strength
         x = modulated_conv2d(x, self.weight, styles, noise=noise, up=self.up,
                              padding=self.padding, resample_filter=self.resample_filter,
                              flip_weight=(self.up == 1))
@@ -194,14 +204,16 @@ class SynthesisBlock(nn.Module):
             with torch.no_grad():
                 self.const.copy_(_normal(self.const.shape, gen, self.const.device))
 
-    def forward(self, x, img, ws, noise_mode="const"):
-        """ws: (N, num_conv + num_torgb, w_dim)."""
+    def forward(self, x, img, ws, noise_mode="const", noise=None):
+        """ws: (N, num_conv + num_torgb, w_dim). noise: {'conv0', 'conv1':
+        (N, 1, R, R)} under noise_mode='random'."""
+        noise = noise or {}
         if self.in_channels == 0:
             x = self.const[None].expand(ws.shape[0], -1, -1, -1)
-            x = self.conv1(x, ws[:, 0], noise_mode=noise_mode)
+            x = self.conv1(x, ws[:, 0], noise_mode=noise_mode, noise=noise.get("conv1"))
         else:
-            x = self.conv0(x, ws[:, 0], noise_mode=noise_mode)
-            x = self.conv1(x, ws[:, 1], noise_mode=noise_mode)
+            x = self.conv0(x, ws[:, 0], noise_mode=noise_mode, noise=noise.get("conv0"))
+            x = self.conv1(x, ws[:, 1], noise_mode=noise_mode, noise=noise.get("conv1"))
         if img is not None and self.up > 1:
             img = upsample2d(img, self.resample_filter)
         if self.num_torgb:
@@ -233,16 +245,28 @@ class SynthesisNetwork(nn.Module):
             self.add_module(f"b{res}", block)
             self.num_ws += block.num_conv + (block.num_torgb if res == img_resolution else 0)
 
-    def forward(self, ws, noise_mode="const"):
-        """ws: (N, num_ws, w_dim) -> (N, img_channels, R, R)."""
+    def draw_noise(self, n, generator=None):
+        """Fresh standard-normal noise maps for noise_mode='random', one per
+        noise_const buffer, in the order of synthesis: {its name: (n, 1, R,
+        R)} from `generator`, on the buffers' device (spi_tpu draws each
+        from its own split key)."""
+        return {k: torch.randn((n, 1, *v.shape), generator=generator, device=v.device)
+                for k, v in self.named_buffers() if k.endswith("noise_const")}
+
+    def forward(self, ws, noise_mode="const", noise=None):
+        """ws: (N, num_ws, w_dim) -> (N, img_channels, R, R). noise: under
+        noise_mode='random', the maps ({noise_const name: (N, 1, R, R)}, as
+        `draw_noise` gives)."""
         x = img = None
         w_idx = 0
         for res in self.block_resolutions:
             block = getattr(self, f"b{res}")
+            block_noise = {k.split(".")[1]: v for k, v in (noise or {}).items()
+                           if k.startswith(f"b{res}.")}
             # A block's torgb w is the next block's first w
             # (networks_stylegan2.py:503-512).
             block_ws = ws[:, w_idx:w_idx + block.num_conv + block.num_torgb]
-            x, img = block(x, img, block_ws, noise_mode=noise_mode)
+            x, img = block(x, img, block_ws, noise_mode=noise_mode, noise=block_noise)
             w_idx += block.num_conv
         return img
 

@@ -33,6 +33,8 @@ from spi_tpu_torch.models.superresolution import Superresolution
 from spi_tpu_torch.utils.device import resolve_device
 from spi_tpu_torch.utils.params import cast_call
 
+_SYNTHESIS = "backbone.synthesis."
+
 
 @dataclasses.dataclass(frozen=True)
 class TriPlaneConfig:
@@ -173,12 +175,23 @@ class TriPlaneGenerator(nn.Module):
         rgb, sigma = cast_call(self.decoder, dt, feats.to(dt), dirs)
         return rgb.float(), sigma.float()
 
-    def planes_nhwc(self, ws, noise_mode="const"):
+    def draw_noise(self, n, generator=None):
+        """Noise maps for noise_mode='random': {noise_const name under
+        `backbone.synthesis.`: (n, 1, R, R)} from `generator`."""
+        return {_SYNTHESIS + k: v
+                for k, v in self.backbone.synthesis.draw_noise(n, generator).items()}
+
+    def planes_nhwc(self, ws, noise_mode="const", noise=None, generator=None):
         """ws (N, num_ws, w_dim) -> planes (N, 3, H*W, plane_channels), in
-        the compute dtype."""
+        the compute dtype. Under noise_mode='random' the noise maps are
+        `noise` (as `draw_noise` gives), else drawn from `generator`."""
         dt = self.compute_dtype
-        planes = cast_call(self.backbone.synthesis, dt, ws.to(dt),
-                           noise_mode=noise_mode)  # (N, 96, H, W)
+        if noise_mode == "random" and noise is None:
+            noise = self.draw_noise(ws.shape[0], generator)
+        if noise is not None:
+            noise = {k.removeprefix(_SYNTHESIS): v for k, v in noise.items()}
+        planes = cast_call(self.backbone.synthesis, dt, ws.to(dt), noise_mode=noise_mode,
+                           noise=noise)  # (N, 96, H, W)
         n, _, h, w = planes.shape
         pc = self.cfg.plane_channels
         return planes.reshape(n, 3, pc, h, w).permute(0, 1, 3, 4, 2).reshape(n, 3, h * w, pc)
@@ -189,10 +202,12 @@ class TriPlaneGenerator(nn.Module):
         'image_depth'} (EG3D triplane.py:53-89).
 
         draws: the renderer's random numbers as tensors
-        ({'stratified', 'exponential'}, see ImportanceRenderer); what is
-        not given is drawn from `generator`.
+        ({'stratified', 'exponential'}, see ImportanceRenderer) and, under
+        noise_mode='random', the noise maps ({'noise': `draw_noise`'s
+        dict}); what is not given is drawn from `generator`.
         """
-        planes = self.planes_nhwc(ws, noise_mode=noise_mode)
+        planes = self.planes_nhwc(ws, noise_mode=noise_mode, noise=(draws or {}).get("noise"),
+                                  generator=generator)
         out = self.synthesis_from_planes(planes, ws, c, neural_rendering_resolution,
                                          draws=draws, generator=generator)
         return {k: out[k] for k in ("image", "image_raw", "image_depth")}

@@ -107,6 +107,16 @@ def index_tree(tree, i: int):
     return type(tree)(index_tree(v, i) for v in tree)
 
 
+def to_device(tree, device):
+    """A nest of dicts, lists and tuples of tensors with every tensor on
+    `device`."""
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return type(tree)(to_device(v, device) for v in tree)
+
+
 def init_noise_like(module: nn.Module, generator=None) -> dict[str, torch.Tensor]:
     """Fresh standard-normal noise maps, one per buffer, drawn in sorted
     name order (w_projector.py:58-60)."""

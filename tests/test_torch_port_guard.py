@@ -127,6 +127,42 @@ def test_outputs_and_preprocess_raise_without_gpu(no_cuda, tmp_path):
             call()
 
 
+def test_editing_raises_without_gpu(no_cuda, tmp_path):
+    """CLIP (at the published width and the tiny one), the ZSSGAN trainers,
+    the StyleCLIP mapper and coach and both editing CLIs default to the
+    card and raise without one."""
+    from spi_tpu_torch.cli import generate_edit_videos, run_editing
+    from spi_tpu_torch.editing import DirectionalCLIPLoss, IDE3DZSSGANTrainer, ZSSGANTrainer
+    from spi_tpu_torch.editing.styleclip_mapper import LevelsMapper, StyleCLIPCoach
+    from spi_tpu_torch.editing.zssgan2d import ZSSGAN2DTrainer
+    from spi_tpu_torch.models import TriPlaneGenerator, tiny_test_config
+    from spi_tpu_torch.models.perception.clip import CLIP, tiny_test_clip, vit_b32
+    from spi_tpu_torch.models.stylegan2 import Generator
+
+    for cfg in (vit_b32(), tiny_test_clip()):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            CLIP(cfg)
+    loss = {"tiny": DirectionalCLIPLoss(CLIP(tiny_test_clip(), device="cpu"))}
+    g = TriPlaneGenerator(tiny_test_config(), device="cpu")
+    g2d = Generator(16, 0, 16, 16, 3, channel_base=256, channel_max=32, device="cpu")
+    for cls, gen in ((ZSSGANTrainer, g), (IDE3DZSSGANTrainer, g), (ZSSGAN2DTrainer, g2d)):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            cls(gen, loss, {"tiny": 1.0})
+    with pytest.raises(RuntimeError, match="no GPU"):
+        LevelsMapper(dim=16, num_ws=4)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        StyleCLIPCoach(LevelsMapper(dim=16, num_ws=4, device="cpu"))
+    calls = [lambda: run_editing.main(["--frozen_gen_ckpt", "unused", "--output_dir",
+                                       str(tmp_path / "edit"), "--random_init", "--tiny"]),
+             lambda: generate_edit_videos.main(["--ckpt", "unused.npz", "--out_dir",
+                                                str(tmp_path / "vid"), "--source_latent",
+                                                "unused.npy"])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no GPU"):
+            call()
+    assert not any(tmp_path.iterdir())
+
+
 def test_resolve_device_names_the_card(monkeypatch):
     """`cuda` resolves to the current card's index, the device a module on
     the card reports, so that the entry points' device checks agree."""
