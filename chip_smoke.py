@@ -83,11 +83,43 @@ Phases (any failure exits non-zero):
      1024 on two seeded random 2D StyleGAN2 checkpoints written by the
      phase (four --ckpt, for the combined video's square grid), 8 unedited
      frames: the videos or their fallbacks, the bias_act forward kernel
-     launched.
+     launched;
+ 20. EG3D GAN training at full width: ffhq512_128_config at nrr 64 in
+     bfloat16 and DualDiscriminator(c_dim=25, img_resolution=512) in
+     float32, seeded random, batch 8 (run_gan_training's default; 4 if 8
+     does not fit, said on its own line), the ADA pipe at p = 0.2, a
+     synthetic 512^2 batch at the canonical camera: 6 steps (step 0 with
+     lazy R1 and density TV, step 4 with density TV) and a warm R1 step;
+     seconds by kind of step, peak memory, launches a step (the splat and
+     both bias_act kernels in both dtypes, and no second-order launch:
+     D's activations are lrelu and linear), finite losses, every parameter
+     that gets a gradient moved, G_ema moved less than G; a plain and an R1
+     step under torch.profiler (device time by kind, the float32
+     convolutions' share, the busy share); then each kernel on the
+     inputs of its largest call in an R1 + TV step (the splat's coarse
+     pass, D's float32 bias_act forward and backward and the backward as
+     R1's second order, G's bf16 forms) against its plain version, at
+     phase 2's tolerances;
+ 21. cli/run_gan_training.py at full width on 16 synthetic 512^2 images
+     with a dataset.json (4 steps, a tick and snapshot each): stats.jsonl,
+     the snapshots, network-final.npz rendering through the port's
+     TriPlaneGenerator; then the CLI's tiny trainer in two processes on the
+     card (gloo): the CLI finds the replicas of G, D and G_ema bitwise
+     equal at every snapshot and leaves the process group.
 Phase 2 also holds the splat and both bias_act kernels (f32 and bf16, a
 batched and a shared bias) under torch.func.vmap against their plain
 versions under the same vmap and a loop over the images: one launch each
 for the batch.
+Phase 2 also holds bias_act's second-order kernel against its plain
+version (every activation, with and without clamp, the kink row), a
+double backward through `bias_act` on the card against the CPU (the
+backward kernel as the backward of the backward, the second-order kernel
+where act'' is not identically 0), and `_BiasActCudaGrad` under vmap (one
+launch).
+Phase 3 also holds one tiny GAN step (spi_tpu's tiny GAN trainer,
+float32, R1 and density TV, the pipe at p = 0.5, the same draws) on the
+card against the CPU: the R1 term, the losses and every D and G gradient
+to TOL_SYNTH; the R1 step launches more backward kernels than a plain one.
 Phase 3 also holds one tiny_test_config RotBbox step (all four
 regularizers, the mirror term on) on the card against the CPU: its LPIPS
 and every weight gradient, in both dtypes; and one tiny ZSSGAN step
@@ -97,11 +129,13 @@ renderer draws), which launches the splat and both bias_act kernels: the
 loss and every trained leaf's gradient and value to TOL_SYNTH, every other
 leaf bitwise unchanged on both.
 
-Each path (phases 3, 4, 6, 7, 9, 10, 12-19 and each tool) runs with the launch
+Each path (phases 3, 4, 6, 7, 9, 10, 12-21 and each tool) runs with the launch
 counts set to 0 just before it and fails unless each kernel it is meant
 to launch was launched: a bfloat16 path the bias_act kernels' bf16 forms.
 Prints the card's name and power limit, one `{"kernels": [...]}` line
-(the bf16 forms' launches from the bfloat16 'sg' run), and last `{"ok":
+(the bf16 forms' launches from the bfloat16 'sg' run, the second-order
+form's from phase 20, and each kernel's launches in a plain GAN step as
+`gan_launches`), and last `{"ok":
 true, "device": {...}}`. TF32 is off throughout, as the JAX reference
 computes float32 in full.
 """
@@ -1178,7 +1212,7 @@ def profile_step(label, fn, wait, steady_s, of_what):
     number `wait` + 1 (after `wait` steps and one warm-up step): device time
     by kernel and by kind, and its share of `steady_s`, an unprofiled step
     time (the profiler's own overhead stretches the profiled step's wall
-    time)."""
+    time). Returns ({kind: device ms}, total device ms)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1203,6 +1237,7 @@ def profile_step(label, fn, wait, steady_s, of_what):
         log(f"profile kernel {t:10.3f} ms {n:6d}x  {name[:110]}")
     log(f"profile: device busy {100 * total / (steady_s * 1e3):.1f}% of a {label} (device time "
         f"over {of_what} {steady_s * 1e3:.3f} ms)")
+    return kinds, total
 
 
 def phase_profile(dev, model, steady_s, dtype="float32"):
@@ -2289,6 +2324,626 @@ def phase_editing_clis(dev, iters=3, frames=8, size=1024):
     shutil.rmtree(root / "videos", ignore_errors=True)
 
 
+def _double_backward(fn, x, b, w, v, u):
+    """d/d(x, b) of sum(v * dL/dx) + sum(u * dL/db), L = sum(w * fn(x, b)^2)
+    (the square makes the cotangent reaching fn's backward depend on x, as a
+    layer's does inside a network, so that the backward kernel runs again
+    as the backward of the backward)."""
+    import torch
+
+    x = x.detach().requires_grad_(True)
+    b = b.detach().requires_grad_(True)
+    gx, gb = torch.autograd.grad((fn(x, b).square() * w).sum(), (x, b), create_graph=True)
+    outer = (gx * v).sum() + (gb * u).sum() + 0.0 * (x.sum() + b.sum())
+    return torch.autograd.grad(outer, (x, b))
+
+
+def phase_bias_act_grad2(dev):
+    """Phase 2, bias_act's second order (float32): the second-order kernel
+    against `bias_act_grad2_plain` at (1, 128, 256, 256) for every activation
+    with and without clamp, the kink row at x + b = 0 included (elements
+    within 4 ulp of the clamp left out and counted, as for the backward),
+    within TOL_ELEMWISE; a double backward through `bias_act` on the card
+    against the same on the CPU (the plain chain), within TOL_ELEMWISE, with
+    the backward kernel launched as the backward of the backward and the
+    second-order kernel exactly where act'' is not identically 0;
+    `_BiasActCudaGrad` and the second-order Function under vmap (B =
+    VMAP_B, a batched and a shared bias), one launch each, bitwise a loop of
+    the kernels; and the kernel's times against its bound and the plain
+    version."""
+    import importlib
+
+    import torch
+
+    from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.tools.timing import device_ms
+    from spi_tpu_torch.utils.params import vmap_strict
+
+    ba = importlib.import_module("spi_tpu_torch.ops.bias_act")
+    shape, dim = (1, 128, 256, 256), 1
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(*shape, device=dev, generator=gen) * 3.0
+    b = torch.randn(shape[dim], device=dev, generator=gen)
+    x[KINK_ROW] = -b
+    g, gg = (torch.randn(*shape, device=dev, generator=gen) for _ in range(2))
+    worst = 0.0
+    for act in sorted(ba.activation_funcs):
+        spec = ba.activation_funcs[act]
+        for clamp in (None, 2.5):
+            cfg = (dim, spec.cuda_id, spec.def_alpha, 1.7, clamp)
+            out = ba.bias_act_grad2_cuda(gg, g, x, b, *cfg)
+            ref = ba.bias_act_grad2_plain(gg, g, x, b, dim=dim, act=act, gain=1.7, clamp=clamp)
+            n_near = 0
+            if clamp is not None:
+                pre = ba.bias_act_plain(x, b, dim=dim, act=act, gain=1.7)
+                near = (pre.abs() - clamp).abs() <= 1e-6
+                n_near = int(near.sum())
+                out, ref = out.masked_fill(near, 0), ref.masked_fill(near, 0)
+                del pre, near
+            check(n_near <= 1e-4 * x.numel(), f"{n_near} elements at the clamp for {act}")
+            err = float((out - ref).abs().max())
+            excess = float(((out - ref).abs() - TOL_ELEMWISE * (1 + ref.abs())).max())
+            kink = float((out[KINK_ROW] - ref[KINK_ROW]).abs().max())
+            worst = max(worst, err)
+            log(f"bias_act_grad2 {act:8s} clamp {clamp}: max abs err {err:.2e}, at the kink "
+                f"row {kink:.2e} ({n_near} elements at the clamp left out)")
+            check(excess <= 0, f"bias_act_grad2 {act} clamp {clamp} disagrees: {err:.3e}")
+    # A double backward through bias_act, card (kernels) against CPU (plain chain).
+    cg = torch.Generator().manual_seed(6)
+    small = (2, 16, 8, 8)
+    for act in sorted(ba.activation_funcs):
+        for clamp in (None, 2.5):
+            xs = torch.randn(*small, generator=cg) * 2
+            bs = torch.randn(16, generator=cg)
+            xs[0, :, 0, 0] = -bs
+            w, v = (torch.randn(*small, generator=cg) for _ in range(2))
+            u = torch.randn(16, generator=cg)
+
+            def fn(xi, bi):
+                return ba.bias_act(xi, bi, act=act, gain=1.3, clamp=clamp)
+
+            want = _double_backward(fn, xs, bs, w, v, u)
+            _lib.reset_launch_counts()
+            got = _double_backward(fn, *(t.to(dev) for t in (xs, bs, w, v, u)))
+            torch.cuda.synchronize()
+            n = dict(_lib.launch_counts)
+            errs = [float(((a.cpu() - r).abs() - TOL_ELEMWISE * (1 + r.abs())).max())
+                    for a, r in zip(got, want)]
+            second = int(ba.activation_funcs[act].grad2 is not None)
+            log(f"double backward {act:8s} clamp {clamp}: card vs CPU excess over tolerance "
+                f"{max(errs):.2e}; launches fwd {n['bias_act_fwd']}, bwd {n['bias_act_bwd']}, "
+                f"grad2 {n['bias_act_grad2']}")
+            check(max(errs) <= 0, f"double backward through bias_act {act} disagrees")
+            check((n["bias_act_fwd"], n["bias_act_bwd"], n["bias_act_grad2"]) == (1, 3, second),
+                  f"double backward {act}: launches {n}")
+    # Under vmap: one launch for the batch (each image (128, 64, 64), channels first).
+    spec = ba.activation_funcs["softplus"]
+    cfg = (0, spec.cuda_id, spec.def_alpha, 1.7, 2.5)
+    vshape = (VMAP_B, 128, 64, 64)
+    gv, xv, ggv = (torch.randn(*vshape, device=dev, generator=gen) for _ in range(3))
+    for batched_bias in (True, False):
+        bv = torch.randn(*((VMAP_B,) if batched_bias else ()), 128, device=dev, generator=gen)
+        in_dims = (0, 0, 0 if batched_bias else None)
+        _lib.reset_launch_counts()
+        dx = vmap_strict(lambda gi, xi, bi: ba._BiasActCudaGrad.apply(gi, xi, bi, *cfg),
+                         in_dims)(gv, xv, bv)
+        ddx = vmap_strict(lambda a, gi, xi, bi: ba._BiasActCudaGrad2.apply(a, gi, xi, bi, *cfg),
+                          (0,) + in_dims)(ggv, gv, xv, bv)
+        torch.cuda.synchronize()
+        n = (_lib.launch_counts["bias_act_bwd"], _lib.launch_counts["bias_act_grad2"])
+        same = all(torch.equal(dx[i], ba.bias_act_bwd_cuda(gv[i], xv[i], bi, *cfg))
+                   and torch.equal(ddx[i], ba.bias_act_grad2_cuda(ggv[i], gv[i], xv[i], bi, *cfg))
+                   for i, bi in enumerate(bv if batched_bias else [bv] * VMAP_B))
+        log(f"vmap _BiasActCudaGrad / second order, {VMAP_B} x {vshape[1:]}, "
+            f"{'batched' if batched_bias else 'shared'} bias: launches {n}, bitwise a loop of "
+            f"the kernels {same}")
+        check(n == (1, 1) and same, f"vmapped second order: launches {n}, loop equal {same}")
+    # Times: softplus (act'' nonzero) with a clamp, at the block's shape.
+    spec = ba.activation_funcs["softplus"]
+    cfg = (dim, spec.cuda_id, spec.def_alpha, 1.0, 256.0)
+
+    def plain():
+        return ba.bias_act_grad2_plain(gg, g, x, b, dim=dim, act="softplus", gain=1.0,
+                                       clamp=256.0)
+
+    ms = time_ms(lambda: ba.bias_act_grad2_cuda(gg, g, x, b, *cfg))
+    plain_ms = time_ms(plain)
+    dms = device_ms(lambda: ba.bias_act_grad2_cuda(gg, g, x, b, *cfg))
+    plain_dms = device_ms(plain)
+    n = x.numel()
+    b_ms, b_by = bound_ms(4 * n * 4 + shape[dim] * 4, 12 * n)
+    log(f"bias_act_grad2 softplus {shape}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.4f} "
+        f"by {b_by}); device-only {dms:.4f} (plain {plain_dms:.4f}) ms")
+    return {"name": "bias_act_grad2", "route": "cuda", "source": "spi_tpu_torch/csrc/bias_act.cu",
+            "replaces": "spi_tpu/ops/bias_act_pallas.py:96", "max_abs_err": worst, "ms": ms,
+            "device_ms": dms, "plain_ms": plain_ms, "plain_device_ms": plain_dms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "library_device_ms": None}
+
+
+GAN_KERNELS = ("plane_splat", "bias_act_fwd", "bias_act_bwd", "bias_act_fwd_bf16",
+               "bias_act_bwd_bf16")  # D in float32, G in bfloat16
+TINY_GAN_P = 0.5
+
+
+def tiny_gan_steps(device, draws=None):
+    """Two steps of the tiny trainer of spi_tpu's GAN tests (float32, batch 2,
+    r1_interval = density_reg_interval = 2: step 0 runs R1 and density TV,
+    step 1 neither; the pipe at p = TINY_GAN_P; noise strengths 0.5) on
+    `device`, from the same seeded weights and inputs. draws: both steps'
+    draws, else drawn on the CPU from a generator seeded 8. Returns (step 0's
+    R1 term, each step's metrics, step 0's {'g'|'d': {name: gradient}},
+    each step's launches, draws), on the CPU."""
+    import torch
+
+    from spi_tpu_torch.models import TriPlaneGenerator
+    from spi_tpu_torch.models.discriminator import DualDiscriminator
+    from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.training.augment import AugmentPipe
+    from spi_tpu_torch.training.gan import (
+        TINY_DISCRIMINATOR,
+        GANConfig,
+        GANTrainer,
+        tiny_gan_config,
+    )
+    from spi_tpu_torch.utils.camera import canonical_camera
+    from spi_tpu_torch.utils.params import to_device
+
+    g = TriPlaneGenerator(tiny_gan_config(), device=device, seed=0)
+    with torch.no_grad():
+        for name, t in g.named_parameters():
+            if name.endswith("noise_strength"):
+                t.fill_(0.5)
+    d = DualDiscriminator(c_dim=25, **TINY_DISCRIMINATOR, device=device, seed=1)
+    tr = GANTrainer(g, d, GANConfig(batch_per_device=2, r1_interval=2, density_reg_interval=2),
+                    augment=AugmentPipe(), device=device)
+    gen = torch.Generator().manual_seed(8)
+    real = torch.tanh(torch.randn(2, 3, 128, 128, generator=gen)).to(device)
+    z = torch.randn(2, 16, generator=gen).to(device)
+    if draws is None:
+        draws = [tr.draw(2, gen) for _ in range(2)]
+    c = canonical_camera(batch_size=2, device=device)
+    _, aux = tr.d_loss(real, z, c, to_device(draws[0]["d"], tr.device), 0, TINY_GAN_P)
+    r1 = float(aux["r1"].detach())
+    metrics, launched, grads = [], [], None
+    for step in range(2):
+        before = dict(_lib.launch_counts)
+        m = tr.step(real, z, c, TINY_GAN_P, draws[step])
+        metrics.append({k: float(v) for k, v in m.items()})
+        launched.append({k: _lib.launch_counts[k] - before[k] for k in before})
+        if step == 0:
+            grads = {w: {k: p.grad.detach().cpu() for k, p in leaves.items()}
+                     for w, leaves in (("g", tr.g_leaves), ("d", dict(d.named_parameters())))}
+    return r1, metrics, grads, launched, draws
+
+
+def phase_tiny_gan(dev):
+    """Card (kernels) vs CPU (plain versions): one tiny GAN step with R1 and
+    density TV on the same draws (each render's noise maps and renderer
+    draws, the pipe's, density TV's): the R1 term, the D and G losses, rt,
+    fake_score and every D and G gradient to TOL_SYNTH of the largest entry;
+    R1 differentiates twice through the pipe (grid_sample's gathers), the
+    antialiased resize, conv2d_resample and cuDNN and the bias_act kernels.
+    The R1 step launches more bias_act backward kernels than the step
+    without R1 that follows it."""
+    ref_r1, ref_m, ref_g, cpu_launched, draws = tiny_gan_steps("cpu")
+    r1, m, grads, launched, _ = tiny_gan_steps(dev, draws)
+    check(not any(any(s.values()) for s in cpu_launched), "the CPU run launched kernels")
+    check(all(launched[0][k] for k in INVERSION_KERNELS),
+          f"card R1 step skipped a kernel: {launched[0]}")
+    r1_err = abs(r1 - ref_r1) / abs(ref_r1)
+    m_err = {k: abs(m[0][k] - ref_m[0][k]) / max(abs(ref_m[0][k]), 1e-6) for k in ref_m[0]}
+    errs = sorted(((rel_err(grads[w][k], ref_g[w][k]), f"{w}:{k}") for w in ref_g
+                   for k in ref_g[w]), reverse=True)
+    log(f"tiny GAN step card vs CPU: R1 {r1:.6f} vs {ref_r1:.6f} (rel {r1_err:.2e}); metrics "
+        + ", ".join(f"{k} {m[0][k]:.6f} ({e:.1e})" for k, e in m_err.items())
+        + f"; {len(errs)} gradients, the worst " + ", ".join(f"{k} {e:.2e}" for e, k in errs[:4])
+        + f" (tol {TOL_SYNTH}); step 1 losses card {m[1]['loss_d']:.6f} / "
+        f"{m[1]['loss_g']:.6f}, CPU {ref_m[1]['loss_d']:.6f} / {ref_m[1]['loss_g']:.6f}")
+    log(f"tiny GAN launches: R1 + TV step {launched[0]}; plain step {launched[1]}")
+    check(r1 > 0 and r1_err <= TOL_SYNTH, f"tiny GAN R1 disagrees: {r1_err:.3e}")
+    check(max(m_err.values()) <= TOL_SYNTH, f"tiny GAN metrics disagree: {m_err}")
+    check(all(math.isfinite(e) and e <= TOL_SYNTH for e, _ in errs),
+          f"tiny GAN gradient of {errs[0][1]} disagrees: {errs[0][0]:.3e}")
+    check(launched[0]["bias_act_bwd"] > launched[1]["bias_act_bwd"],
+          "the R1 step launched no more backward kernels than a plain step")
+
+
+GAN_BATCH = 8  # run_gan_training's default --batch
+GAN_P = 0.2
+
+
+def gan_trainer(dev, batch):
+    """ffhq512_128_config at nrr 64 in bfloat16 and DualDiscriminator(c_dim=25,
+    img_resolution=512), seeded random, the ADA pipe; a synthetic batch of
+    512^2 images at the canonical camera."""
+    import torch
+
+    from spi_tpu_torch.models import TriPlaneGenerator, ffhq512_128_config
+    from spi_tpu_torch.models.discriminator import DualDiscriminator
+    from spi_tpu_torch.training.augment import AugmentPipe
+    from spi_tpu_torch.training.gan import GANConfig, GANTrainer
+    from spi_tpu_torch.utils.camera import canonical_camera
+
+    g = TriPlaneGenerator(ffhq512_128_config(neural_rendering_resolution=64,
+                                             compute_dtype="bfloat16"), device=dev, seed=0)
+    d = DualDiscriminator(c_dim=25, img_resolution=512, device=dev, seed=1)
+    tr = GANTrainer(g, d, GANConfig(batch_per_device=batch), augment=AugmentPipe(), device=dev,
+                    seed=2)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    real = torch.rand(batch, 3, 512, 512, device=dev, generator=gen) * 2 - 1
+    c = canonical_camera(batch_size=batch, device=dev)
+    return tr, real, c
+
+
+def gan_steps(tr, real, c, counts, on_step=None):
+    """One step at each of `counts` (the trainer's step number, which picks
+    the regularizers); each timed after a device sync, with its launches.
+    Returns [(s, launches, metrics)]."""
+    import torch
+
+    from spi_tpu_torch.ops import _lib
+
+    out = []
+    for i, n in enumerate(counts):
+        tr.step_count = n
+        z = torch.randn(real.shape[0], tr.generator.z_dim, device=real.device, generator=tr.rng)
+        before = dict(_lib.launch_counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.step(real, z, c, GAN_P)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0, {k: _lib.launch_counts[k] - before[k]
+                                               for k in before},
+                    {k: float(v) for k, v in m.items()}))
+        if on_step is not None:
+            on_step(i, out[-1][0])
+    return out
+
+
+class KernelInputs:
+    """While entered, records the arguments of the largest call (by
+    elements) of each kernel wrapper on the GAN path, as copies: the splat,
+    the bias_act forward and backward in float32 and bfloat16, and the
+    float32 backward launched as the backward of the backward (R1's second
+    order, inside `_BiasActCudaGrad.backward`)."""
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+
+        from spi_tpu_torch.ops import plane_splat as ps
+
+        ba = importlib.import_module("spi_tpu_torch.ops.bias_act")
+
+        self.calls = {}
+        self.second_order = 0
+        self.saved = [(ba, "bias_act_fwd_cuda", ba.bias_act_fwd_cuda),
+                      (ba, "bias_act_bwd_cuda", ba.bias_act_bwd_cuda),
+                      (ps, "splat_cuda", ps.splat_cuda),
+                      (ba._BiasActCudaGrad, "backward", ba._BiasActCudaGrad.__dict__["backward"])]
+        self.originals = {name: fn for _, name, fn in self.saved}
+
+        def recorder(name, fn, first):
+            def call(*args):
+                key = name
+                if name != "plane_splat":
+                    key += "" if args[first].dtype == torch.float32 else "_bf16"
+                    if name == "bias_act_bwd" and self.second_order:
+                        key += " (R1 second order)"
+                n = args[first].numel()
+                if n > self.calls.get(key, (0, None))[0]:
+                    self.calls[key] = (n, [a.detach().clone() if hasattr(a, "detach") else a
+                                           for a in args])
+                return fn(*args)
+            return call
+
+        backward = self.originals["backward"].__func__
+
+        def tagged_backward(ctx, gg):
+            self.second_order += 1
+            try:
+                return backward(ctx, gg)
+            finally:
+                self.second_order -= 1
+
+        ba.bias_act_fwd_cuda = recorder("bias_act_fwd", ba.bias_act_fwd_cuda, 0)
+        ba.bias_act_bwd_cuda = recorder("bias_act_bwd", ba.bias_act_bwd_cuda, 1)
+        ps.splat_cuda = recorder("plane_splat", ps.splat_cuda, 1)
+        ba._BiasActCudaGrad.backward = staticmethod(tagged_backward)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+        return False
+
+
+def check_kernel_inputs(calls, originals):
+    """Each recorded call (KernelInputs) again through its kernel, against
+    its plain version on the same inputs: the splat within TOL_SPLAT of the
+    largest entry; bias_act in float32 within TOL_ELEMWISE (absolute +
+    relative), in bfloat16 bitwise for linear and lrelu and within
+    TOL_BF16_ULP for the others (TOL_SATURATED_DX for the saturating
+    activations' dx), as phase 2 holds them. Where act(x + b) * gain lies
+    within 1e-5 of the clamp, the two may clamp apart: such elements are
+    left out of the comparison and counted. Returns {kernel: max abs err}."""
+    import torch
+
+    from spi_tpu_torch.ops import plane_splat as ps
+    from spi_tpu_torch.ops.bias_act import (
+        activation_funcs,
+        bias_act_grad_plain,
+        bias_act_plain,
+    )
+
+    names = {spec.cuda_id: name for name, spec in activation_funcs.items()}
+    worst = {}
+    for key, (_, args) in sorted(calls.items()):
+        if key == "plane_splat":
+            coords, g, box_warp, h, w, geom = args[:6]
+            got = originals["splat_cuda"](*args)
+            want = ps.splat_plain(coords, g, box_warp, h, w)
+            err = rel_err(got, want)
+            worst[key] = float((got - want).abs().max())
+            log(f"GAN kernel inputs: splat {tuple(g.shape)} ({coords.shape[0] * coords.shape[1]} "
+                f"points), {geom}: max abs err {worst[key]:.3e}, rel {err:.3e} (tol {TOL_SPLAT})")
+            check(err <= TOL_SPLAT, f"splat disagrees at the GAN's shape {tuple(g.shape)}")
+            continue
+        fwd = key.startswith("bias_act_fwd")
+        g, (x, b, dim, act_id, alpha, gain, clamp) = (None, args) if fwd else (args[0], args[1:])
+        act = names[act_id]
+        kw = dict(dim=dim, act=act, alpha=alpha, gain=gain, clamp=clamp)
+        if fwd:
+            got = originals["bias_act_fwd_cuda"](*args)
+            want = bias_act_plain(x, b, **kw)
+        else:
+            got = originals["bias_act_bwd_cuda"](*args)
+            want = bias_act_grad_plain(g, x, b, **kw)
+        d = (got.float() - want.float()).abs()
+        worst[key] = float(d.max())
+        ok = torch.zeros_like(d, dtype=torch.bool)
+        n_near = 0
+        if clamp is not None:
+            pre = bias_act_plain(x, b, **{**kw, "clamp": None}).float()
+            near = (pre.abs() - clamp).abs() <= 1e-5 * clamp
+            n_near = int(near.sum())
+            ok |= near
+            del pre, near
+        if x.dtype == torch.float32:
+            ok |= d <= TOL_ELEMWISE * (1 + want.abs())
+            rule = f"TOL_ELEMWISE {TOL_ELEMWISE}"
+        elif act in ("linear", "lrelu"):
+            ok |= d == 0
+            rule = "bitwise"
+        else:
+            ok |= d <= TOL_BF16_ULP * bf16_ulp(want.float())
+            if not fwd and act in SATURATING:
+                ok |= d <= TOL_SATURATED_DX * g.float().abs() * gain
+            rule = f"{TOL_BF16_ULP} bf16 ulp"
+        log(f"GAN kernel inputs: {key} {act} {tuple(x.shape)} {x.dtype}, gain {gain:.4f}, "
+            f"clamp {clamp}: max abs err {worst[key]:.3e} ({rule}; {n_near} elements at the "
+            f"clamp left out)")
+        check(bool(ok.all()), f"{key} disagrees with its plain version at the GAN's shape "
+              f"{tuple(x.shape)}: {int((~ok).sum())} elements")
+        check(n_near <= max(1e-4 * x.numel(), 1), f"{key}: {n_near} elements at the clamp")
+        del got, want, d, ok
+    return worst
+
+
+def phase_gan(dev):
+    """GAN training at full width (run_gan_training's model, its default batch
+    of GAN_BATCH; if that does not fit the card, 4, EG3D's per-GPU batch): 6
+    steps, step 0 with R1 and density TV (cold), step 4 with density TV, then
+    one more R1 + TV step warm (step number 16); each step's seconds and
+    launches, the peak memory; finite losses, every parameter of D and G
+    that gets a gradient moved (the superresolution's noise strengths get
+    none: its noise mode is 'none'), G_ema moved less than G; then a plain
+    step and an R1 + TV step under torch.profiler (device time by kind,
+    busy share); last, each kernel at the largest shape an R1 + TV step
+    gives it against its plain version (KernelInputs). Returns (the
+    kernels' launches in a plain step, {kind of step: s})."""
+    import statistics
+
+    import torch
+
+    from spi_tpu_torch.ops import _lib
+
+    def run(batch):
+        tr, real, c = gan_trainer(dev, batch)
+        start = {w: {k: p.detach().clone() for k, p in mod.named_parameters()}
+                 for w, mod in (("g", tr.generator), ("d", tr.discriminator))}
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launch_counts()
+        return tr, real, c, start, gan_steps(tr, real, c, [0, 1, 2, 3, 4, 5, 16])
+
+    batch = GAN_BATCH
+    try:
+        tr, real, c, start, steps = run(batch)
+    except torch.cuda.OutOfMemoryError as e:
+        log(f"GAN batch {batch} does not fit the card ({str(e)[:200]}); running at batch 4")
+        torch.cuda.empty_cache()
+        batch = 4
+        tr, real, c, start, steps = run(batch)
+    launches = dict(_lib.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (s, n, m) in enumerate(steps):
+        log(f"GAN batch {batch} step {i}: {s:.4f} s, metrics {m}, launches "
+            + ", ".join(f"{k} {v}" for k, v in n.items() if v))
+        check(all(math.isfinite(v) for v in m.values()), f"GAN step {i}: a loss is not finite")
+    for k in GAN_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was never launched on the GAN path")
+    check(launches["bias_act_grad2"] == 0, "D's lrelu / linear launched the second-order kernel")
+    kinds = {"R1 + density TV, cold (step 0)": steps[0][0], "R1 + density TV": steps[6][0],
+             "density TV": steps[4][0],
+             "plain": statistics.median([steps[i][0] for i in (1, 2, 3, 5)])}
+    log(f"GAN batch {batch} seconds a step: " + ", ".join(f"{k} {v:.4f}" for k, v in kinds.items())
+        + f"; peak device memory {peak:.3f} GiB")
+    check(steps[0][1]["bias_act_bwd"] > steps[1][1]["bias_act_bwd"],
+          "the R1 step launched no more float32 backward kernels than a plain step")
+    log(f"GAN launches a step: plain {steps[1][1]}; R1 + TV {steps[6][1]}; TV {steps[4][1]}")
+    moved = {}
+    for w, mod in (("g", tr.generator), ("d", tr.discriminator)):
+        still = [k for k, p in mod.named_parameters() if torch.equal(p.detach(), start[w][k])]
+        moved[w] = still
+    check(not moved["d"], f"D parameters that did not move: {moved['d'][:4]}")
+    check(all(k.startswith("superresolution.") and k.endswith("noise_strength")
+              for k in moved["g"]), f"G parameters that did not move: {moved['g'][:4]}")
+    d_g = sum(float((p.detach() - start["g"][k]).abs().sum())
+              for k, p in tr.generator.named_parameters())
+    d_ema = sum(float((p - start["g"][k]).abs().sum()) for k, p in tr.g_ema.named_parameters())
+    log(f"GAN: G moved {d_g:.4e} (sum |delta|), G_ema {d_ema:.4e}; G parameters that got no "
+        f"gradient and stayed: {moved['g']}")
+    check(0 < d_ema < d_g, "G_ema did not move less than G")
+
+    def plain_steps(on_step):
+        gan_steps(tr, real, c, [17, 18, 19], on_step)
+
+    kinds_ms, total = profile_step(f"plain GAN step (batch {batch})", plain_steps, 1,
+                                   kinds["plain"], "phase 20's median plain step time")
+    f32_conv = sum(t for k, t in kinds_ms.items() if k in ("convolution", "convolution (FFT)"))
+    log(f"GAN plain step: float32 convolutions (D; G computes in bf16 on tensor cores) "
+        f"{f32_conv:.3f} ms, {100 * f32_conv / total:.1f}% of the device time, "
+        f"{100 * f32_conv / (kinds['plain'] * 1e3):.1f}% of the step")
+
+    def r1_steps(on_step):  # two plain steps, then an R1 + density TV one
+        gan_steps(tr, real, c, [33, 34, 48], on_step)
+
+    profile_step(f"R1 + density TV GAN step (batch {batch})", r1_steps, 1,
+                 kinds["R1 + density TV"], "phase 20's warm R1 + TV step time")
+
+    # The kernels at the shapes this path gives them, against their plain
+    # versions: one more R1 + density TV step records each wrapper's
+    # largest call.
+    with KernelInputs() as rec:
+        gan_steps(tr, real, c, [64])
+    want = {"plane_splat", "bias_act_fwd", "bias_act_bwd", "bias_act_bwd (R1 second order)",
+            "bias_act_fwd_bf16", "bias_act_bwd_bf16"}
+    check(want <= set(rec.calls), f"the GAN step made no call to {sorted(want - set(rec.calls))}")
+    del tr
+    torch.cuda.empty_cache()
+    errs = check_kernel_inputs(rec.calls, rec.originals)
+    log("GAN kernel inputs, max abs err against the plain versions: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return steps[1][1], kinds
+
+
+def phase_gan_cli(dev, n_images=16):
+    """cli/run_gan_training.py at full width on a synthetic folder of
+    n_images 512^2 images with a dataset.json of canonical-camera labels,
+    --max_steps 4 --tick_kimg 0.008 --snap 1 (a tick and a snapshot every
+    step at batch 8): stats.jsonl, the snapshots, the kernels launched, and
+    network-final.npz loaded into the port's TriPlaneGenerator renders a
+    finite image; then the tiny trainer through the CLI in two processes on
+    the one card (gloo, torchrun's environment): both exit 0, the
+    replicas of G, D and G_ema agree bitwise after two steps."""
+    import os
+    import shutil
+    import socket
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from spi_tpu_torch.cli import run_gan_training
+    from spi_tpu_torch.models import TriPlaneGenerator, ffhq512_128_config
+    from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.utils.camera import canonical_camera
+    from spi_tpu_torch.utils.checkpoint import load_flat_params, load_npz
+
+    here = Path(__file__).resolve().parent
+    root = here / "build" / "gan_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    data = root / "data"
+    data.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    label = canonical_camera()[0].tolist()
+    for i in range(n_images):
+        Image.fromarray(rng.integers(0, 255, (512, 512, 3), np.uint8)).save(data / f"{i}.png")
+    (data / "dataset.json").write_text(json.dumps(
+        {"labels": [[f"{i}.png", label] for i in range(n_images)]}))
+    out = root / "out"
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr = run_gan_training.main(["--data", str(data), "--outdir", str(out), "--max_steps", "4",
+                                "--tick_kimg", "0.008", "--snap", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.launch_counts)
+    files = sorted(os.listdir(out))
+    lines = (out / "stats.jsonl").read_text().splitlines()
+    log(f"GAN CLI: {tr.step_count} steps in {wall:.1f} s (model build included); files {files}; "
+        f"{len(lines)} stats lines, the last {lines[-1][:200]}; launches {launches}")
+    for k in GAN_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was never launched by the GAN CLI")
+    check(files == ["network-000000.npz", "network-final.npz", "stats.jsonl"] and len(lines) == 4,
+          f"GAN CLI wrote {files}, {len(lines)} stats lines")
+    del tr
+    torch.cuda.empty_cache()
+    g = TriPlaneGenerator(ffhq512_128_config(), device=dev, seed=5)
+    load_flat_params(g, load_npz(str(out / "network-final.npz")))
+    with torch.no_grad():
+        img = g.synthesis(g.mapping(torch.randn(1, 512, device=dev), canonical_camera(device=dev)),
+                          canonical_camera(device=dev))["image"]
+    check(tuple(img.shape) == (1, 3, 512, 512) and bool(torch.isfinite(img).all()),
+          "the snapshot's generator renders no finite image")
+    log("GAN CLI: network-final.npz loads into TriPlaneGenerator(ffhq512_128_config()) and "
+        "renders a finite 512^2 image")
+    del g, img
+    torch.cuda.empty_cache()
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = ["--data", str(data), "--outdir", str(root / "tiny"), "--tiny", "--batch", "4",
+            "--max_steps", "2", "--tick_kimg", "0.004", "--snap", "1", "--n_devices", "2"]
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                   WORLD_SIZE="2", LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2",
+                   PYTHONPATH=str(here), GLOO_SOCKET_IFNAME="lo")
+        procs.append(subprocess.Popen([sys.executable, "-c", RANK_GAN_CODE, *argv], cwd=here,
+                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    outs = []
+    try:
+        for proc in procs:
+            o, err = proc.communicate(timeout=300)
+            outs.append(o)
+            check(proc.returncode == 0, f"a GAN rank exited {proc.returncode}:\n{err[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    ranks = [json.loads(o.split("RANK_RESULT ")[-1]) for o in outs]
+    equal = [line for line in outs[0].splitlines() if "bitwise equal" in line]
+    log(f"GAN two processes: {time.perf_counter() - t0:.1f} s; {outs[0].splitlines()[0]}; "
+        f"{equal}; launches {[r['launches'] for r in ranks]}")
+    check("process group: gloo, 2 processes" in outs[0], "rank 0 did not report gloo")
+    # main checks G, D and G_ema against rank 0's at every snapshot (it raises
+    # where they differ) and leaves the process group at its end.
+    check(len(equal) == 3, f"rank 0 reported {len(equal)} replica checks, not 3: {equal}")
+    for r in ranks:
+        check(r["steps"] == 2 and r["group_left"], f"a GAN rank: {r}")
+        for k in BF16_KERNELS:
+            check(r["launches"][k] > 0, f"a GAN rank never launched {k}")
+
+
+# Run by `phase_gan_cli` as each rank: the GAN CLI, then the replica check of
+# G, D and G_ema and this process's launch counts as JSON.
+RANK_GAN_CODE = """
+import json, sys
+import torch.distributed as dist
+from spi_tpu_torch.cli import run_gan_training
+from spi_tpu_torch.ops import _lib
+tr = run_gan_training.main(sys.argv[1:])
+print("RANK_RESULT " + json.dumps({"steps": tr.step_count, "group_left": not dist.is_initialized(),
+                                   "launches": dict(_lib.launch_counts)}), flush=True)
+"""
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2322,13 +2977,15 @@ def main(argv=None) -> int:
     model = build_model(dev)
     models = {"float32": model, "bfloat16": build_model(dev, "bfloat16")}
     kernels = phase(2, "kernels vs plain", lambda: [
-        phase_splat(dev, model, args.parent), *phase_bias_act(dev), *phase_bias_act_bf16(dev),
+        phase_splat(dev, model, args.parent), *phase_bias_act(dev), phase_bias_act_grad2(dev),
+        *phase_bias_act_bf16(dev),
         phase_win_scatter(dev, args.parent),
         phase_row_gather(dev), phase_row_scatter_add(dev)])
     phase(2, "kernels under vmap", phase_vmap_kernels, dev)
     phase(3, "tiny synthesis card vs CPU", phase_tiny_synthesis, dev)
     phase(3, "tiny RotBbox step card vs CPU", phase_tiny_rotbbox, dev)
     phase(3, "tiny ZSSGAN step card vs CPU", phase_tiny_zssgan, dev)
+    phase(3, "tiny GAN step (R1, density TV) card vs CPU", phase_tiny_gan, dev)
     # 'sg' in turns, float32, bf16, bf16, float32; the first run of each
     # gives the pivot and the launch counts.
     runs = {"float32": [], "bfloat16": []}
@@ -2367,15 +3024,26 @@ def main(argv=None) -> int:
     edit_s = phase(18, "CLIP-guided editing at full width, float32", phase_editing, dev)
     torch.cuda.empty_cache()
     phase(19, "the editing CLIs", phase_editing_clis, dev)
+    torch.cuda.empty_cache()
+    gan_launches, gan_s = phase(20, "GAN training at full width", phase_gan, dev)
+    torch.cuda.empty_cache()
+    phase(21, "the GAN CLI and two processes", phase_gan_cli, dev)
     for dtype, r in res.items():
         log(f"{dtype}: median s/step after the second: sg {r['sg'][0]:.5f} (in turns: "
             f"{r['sg'][1]:.5f}), mir {r['mir']:.5f}, stage-2 tune {r['tune']:.5f}; RotBbox "
             f"regularizer steps {r['rotbbox'][0]:.5f}, reconstruction steps {r['rotbbox'][1]:.5f}")
     log(f"editing (float32, batch 2, ViT-B/32 + ViT-B/16): median s/step after the second "
         f"{edit_s:.5f}")
+    log("GAN training (full width, bfloat16 G, float32 D): seconds a step " + ", ".join(
+        f"{k} {v:.5f}" for k, v in gan_s.items()))
     for k in kernels:  # launches on the inversion ('sg') path of the kernel's dtype
         dtype = "bfloat16" if k["name"].endswith("_bf16") else "float32"
         k["launches"] = res[dtype]["launches"][k["name"]]
+        k["gan_launches"] = gan_launches[k["name"]]  # in a plain GAN step (phase 20)
+    # The second-order form is on no inversion path; its path is GAN
+    # training's R1 step, where D's lrelu and linear need none of it.
+    grad2 = next(k for k in kernels if k["name"] == "bias_act_grad2")
+    grad2["launches"] = gan_launches["bias_act_grad2"]
     check([k["name"] for k in kernels] == list(_lib.KERNELS), "a kernel is missing from phase 2")
 
     from spi_tpu_torch.tools.bench import card_label

@@ -1,5 +1,5 @@
 // Fused bias + activation + gain + clamp, forward and backward, for Hopper,
-// in float32 and bfloat16.
+// in float32 and bfloat16, and the backward's own derivative in float32.
 //
 // Replaces the Pallas TPU kernels `_fwd_kernel` and `_bwd_kernel` of
 // spi_tpu/ops/bias_act_pallas.py (launched by `_call_2d`), which in turn
@@ -94,6 +94,29 @@ __device__ __forceinline__ float act_grad(int act, float x, float y, float alpha
   }
 }
 
+// d^2 act / d x^2 from x and the (pre-gain) activation y, for the
+// second-order form; 0 for linear, relu and lrelu. At x = 0 each takes the
+// branch of jax.grad(jax.grad(...)) of spi_tpu's impl='xla' path: elu and
+// selu are written there as where(x > 0, x, expm1(x)), so their second
+// derivative at 0 is that of the expm1 branch (1 and lambda alpha).
+__device__ __forceinline__ float act_grad2(int act, float x, float y) {
+  switch (act) {
+    case kTanh: return -2.0f * y * (1.0f - y * y);
+    case kSigmoid: return y * (1.0f - y) * (1.0f - 2.0f * y);
+    case kElu: return x > 0.0f ? 0.0f : y + 1.0f;
+    case kSelu: return x > 0.0f ? 0.0f : y + kSeluLambda * kSeluAlpha;
+    case kSoftplus: {
+      float s = 1.0f / (1.0f + expf(-x));
+      return s * (1.0f - s);
+    }
+    case kSwish: {
+      float s = 1.0f / (1.0f + expf(-x));
+      return s * (1.0f - s) * (2.0f + x * (1.0f - 2.0f * s));
+    }
+    default: return 0.0f;
+  }
+}
+
 // Loads, stores and the rounding of x + b, by element type.
 __device__ __forceinline__ float load(const float* p) { return *p; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
@@ -153,6 +176,29 @@ __global__ void bias_act_bwd_kernel(const T* __restrict__ g, const T* __restrict
        i += gridDim.x * blockDim.x) {
     store(&dx[i], bwd_one<T>(p, load(&g[i]), load(&x[i]),
                              load(&b[bias_index<kBatched>(p, i)])));
+  }
+}
+
+// The second-order form, float32 only: the derivative of the backward
+// kernel's dx = g * act'(x + b) * gain with respect to x, applied to the
+// incoming cotangent gg: ddx = gg * g * act''(x + b) * gain, 0 where the
+// forward clamped (the clamp mask is constant almost everywhere). EG3D's
+// bias_act.cu grad = 2 mode; it has no Pallas counterpart (spi_tpu's
+// models differentiate impl='xla' by autodiff).
+template <bool kBatched>
+__global__ void bias_act_grad2_kernel(const float* __restrict__ gg, const float* __restrict__ g,
+                                      const float* __restrict__ x, const float* __restrict__ b,
+                                      float* __restrict__ out, Params p) {
+  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < p.n;
+       i += gridDim.x * blockDim.x) {
+    float xb = x[i] + b[bias_index<kBatched>(p, i)];
+    float ya = act_fwd(p.act, xb, p.alpha);
+    float d = gg[i] * g[i] * act_grad2(p.act, xb, ya) * p.gain;
+    if (p.clamp >= 0.0f) {
+      float yv = ya * p.gain;
+      if (!(yv > -p.clamp && yv < p.clamp)) d = 0.0f;
+    }
+    out[i] = d;
   }
 }
 
@@ -340,6 +386,20 @@ extern "C" int spi_bias_act_bwd_bf16(const __nv_bfloat16* g, const __nv_bfloat16
     bias_act_bwd_kernel<__nv_bfloat16, true><<<grid_for(n), kThreads, 0, s>>>(g, x, b, dx, p);
   } else {
     bias_act_bwd_kernel<__nv_bfloat16, false><<<grid_for(n), kThreads, 0, s>>>(g, x, b, dx, p);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int spi_bias_act_grad2(const float* gg, const float* g, const float* x,
+                                  const float* b, float* out, int n, int c, int trail,
+                                  int img_elems, int act, float alpha, float gain, float clamp,
+                                  void* stream) {
+  Params p = params(n, c, trail, img_elems, act, alpha, gain, clamp);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (img_elems < n) {
+    bias_act_grad2_kernel<true><<<grid_for(n), kThreads, 0, s>>>(gg, g, x, b, out, p);
+  } else {
+    bias_act_grad2_kernel<false><<<grid_for(n), kThreads, 0, s>>>(gg, g, x, b, out, p);
   }
   return (int)cudaGetLastError();
 }

@@ -14,8 +14,13 @@ float32, and the result is rounded once to the input's dtype.
 `bias_act_grad_plain` is the plain version of the backward kernel (dx by
 the kernel's rule), against which the kernel is checked.
 
-The kernel is first-order only (its backward is a kernel, not
-differentiable again), which is all inversion needs.
+The kernels differentiate twice, as EG3D's (`BiasActCudaGrad`): the
+backward is an autograd Function of its own (`_BiasActCudaGrad`), whose
+backward launches the backward kernel again for the cotangent of g (dx
+is linear in g) and, where act'' is not identically 0 (tanh, sigmoid,
+elu, selu, softplus, swish), the second-order kernel for x and b
+(`bias_act_grad2_plain` is its plain version; float32 only). The GAN's
+lazy R1 penalty is such a second-order gradient. A third order raises.
 
 Under torch.func.vmap (several images a step, parallel/mesh.py) the
 autograd Function's vmap rule launches the kernel once for the batch, as
@@ -47,6 +52,9 @@ class _ActSpec:
     # act_grad: spi_tpu/ops/bias_act_pallas.py `_act_grad`, but at x = 0
     # the value of jax.grad of spi_tpu's default impl='xla' path.
     grad: Callable
+    # d^2 act / d x^2 from x and y, where it is not identically 0: at x = 0
+    # the value of jax.grad(jax.grad(...)) of spi_tpu's impl='xla' path.
+    grad2: Callable | None = None
 
 
 _SELU_LAMBDA, _SELU_ALPHA = 1.0507009873554805, 1.6732632423543772
@@ -56,9 +64,31 @@ def _step(x, below):
     return torch.where(x >= 0, 1.0, below).to(x.dtype)
 
 
+def _expm1_below(x):
+    """expm1(x) where x <= 0, else 0: jax.nn.elu's `safe_x`, so that the
+    branch not taken never overflows into a NaN gradient."""
+    return torch.expm1(torch.where(x > 0, 0.0, x))
+
+
+def _elu(x):
+    # jax.nn.elu's form, whose first and second derivatives at 0 are the
+    # expm1 branch's (F.elu's second derivative there is 0).
+    return torch.where(x > 0, x, _expm1_below(x))
+
+
 def _swish_grad(x):
     s = torch.sigmoid(x)
     return s * (1.0 + x * (1.0 - s))
+
+
+def _swish_grad2(x):
+    s = torch.sigmoid(x)
+    return s * (1.0 - s) * (2.0 + x * (1.0 - 2.0 * s))
+
+
+def _softplus_grad2(x):
+    s = torch.sigmoid(x)
+    return s * (1.0 - s)
 
 
 # Activation table of spi_tpu/ops/bias_act.py (EG3D bias_act.py:23-33),
@@ -73,18 +103,25 @@ activation_funcs: dict[str, _ActSpec] = {
     # both spi_tpu impls and the kernel (F.leaky_relu's gradient there is alpha).
     "lrelu": _ActSpec(lambda x, alpha: torch.where(x >= 0, x, x * alpha), 0.2, math.sqrt(2), 2,
                       lambda x, y, alpha: _step(x, alpha)),
-    "tanh": _ActSpec(lambda x, alpha: torch.tanh(x), 0.0, 1.0, 3, lambda x, y, alpha: 1.0 - y * y),
+    "tanh": _ActSpec(lambda x, alpha: torch.tanh(x), 0.0, 1.0, 3, lambda x, y, alpha: 1.0 - y * y,
+                     lambda x, y: -2.0 * y * (1.0 - y * y)),
     "sigmoid": _ActSpec(lambda x, alpha: torch.sigmoid(x), 0.0, 1.0, 4,
-                        lambda x, y, alpha: y * (1.0 - y)),
-    "elu": _ActSpec(lambda x, alpha: F.elu(x), 0.0, 1.0, 5,
-                    lambda x, y, alpha: torch.where(x >= 0, 1.0, y + 1.0)),
-    "selu": _ActSpec(lambda x, alpha: F.selu(x), 0.0, 1.0, 6,
+                        lambda x, y, alpha: y * (1.0 - y),
+                        lambda x, y: y * (1.0 - y) * (1.0 - 2.0 * y)),
+    # elu and selu are where(x > 0, x, expm1(x)) here as in jax.nn: at 0
+    # their second derivative is the expm1 branch's.
+    "elu": _ActSpec(lambda x, alpha: _elu(x), 0.0, 1.0, 5,
+                    lambda x, y, alpha: torch.where(x >= 0, 1.0, y + 1.0),
+                    lambda x, y: torch.where(x > 0, 0.0, y + 1.0)),
+    "selu": _ActSpec(lambda x, alpha: _SELU_LAMBDA * torch.where(
+        x > 0, x, _SELU_ALPHA * _expm1_below(x)), 0.0, 1.0, 6,
                      lambda x, y, alpha: torch.where(x > 0, _SELU_LAMBDA,
-                                                     y + _SELU_LAMBDA * _SELU_ALPHA)),
+                                                     y + _SELU_LAMBDA * _SELU_ALPHA),
+                     lambda x, y: torch.where(x > 0, 0.0, y + _SELU_LAMBDA * _SELU_ALPHA)),
     "softplus": _ActSpec(lambda x, alpha: F.softplus(x), 0.0, 1.0, 7,
-                         lambda x, y, alpha: torch.sigmoid(x)),
+                         lambda x, y, alpha: torch.sigmoid(x), lambda x, y: _softplus_grad2(x)),
     "swish": _ActSpec(lambda x, alpha: torch.sigmoid(x) * x, 0.0, math.sqrt(2), 8,
-                      lambda x, y, alpha: _swish_grad(x)),
+                      lambda x, y, alpha: _swish_grad(x), lambda x, y: _swish_grad2(x)),
 }
 
 # The dtypes the kernels take, and the launch count of each kernel by dtype.
@@ -142,6 +179,25 @@ def bias_act_grad_plain(g, x, b=None, dim=1, act="linear", alpha=None, gain=None
         yg = y * gain
         d = torch.where((yg > -clamp) & (yg < clamp), d, 0.0)
     return d.to(x.dtype)
+
+
+def bias_act_grad2_plain(gg, g, x, b=None, dim=1, act="linear", alpha=None, gain=None,
+                        clamp=None):
+    """The plain version of the second-order kernel, float32: the derivative
+    of the backward kernel's dx with respect to x, applied to the cotangent
+    gg of dx: gg * g * act''(x + b) * gain, 0 where the forward clamped; 0
+    for linear, relu and lrelu. At x + b = 0, act'' is that of
+    jax.grad(jax.grad(...)) of spi_tpu's impl='xla' path."""
+    spec, alpha, gain, clamp = _resolve(act, alpha, gain, clamp)
+    xb = _add_bias(x, b, dim)
+    if spec.grad2 is None:
+        return torch.zeros_like(xb)
+    y = spec.func(xb, alpha)
+    d = gg.float() * g.float() * spec.grad2(xb, y) * gain
+    if clamp is not None:
+        yg = y * gain
+        d = torch.where((yg > -clamp) & (yg < clamp), d, 0.0)
+    return d
 
 
 def _shape_2d(x, dim):
@@ -222,6 +278,55 @@ def bias_act_bwd_cuda(g, x, b, dim, act_id, alpha, gain, clamp):
     return dx
 
 
+def bias_act_grad2_cuda(gg, g, x, b, dim, act_id, alpha, gain, clamp):
+    """Launch the second-order kernel: gg * g * act''(x + b) * gain, zero
+    where the forward clamped. float32 only (no path needs a bfloat16
+    second order); b as in `bias_act_fwd_cuda`."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"the second-order bias_act kernel takes float32, got {x.dtype}")
+    for t, name in ((gg, "grad of dx"), (g, "grad")):
+        _lib.require(t, name, device=x.device)
+        if t.shape != x.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != x shape {tuple(x.shape)}")
+    _lib.require(x, "x")
+    _require_bias(b, torch.float32, x.device)
+    c, trail, img_elems = _kernel_shapes(x, b, dim)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    err = _lib.lib().spi_bias_act_grad2(
+        gg.data_ptr(), g.data_ptr(), x.data_ptr(), b.data_ptr(), out.data_ptr(), x.numel(), c,
+        trail, img_elems, act_id, alpha, gain, -1.0 if clamp is None else clamp,
+        _lib.stream_handle(x.device),
+    )
+    _lib.check(err, "bias_act_grad2")
+    _lib.launch_counts["bias_act_grad2"] += 1
+    return out
+
+
+# The activations whose second derivative is not identically 0, by kernel id.
+_SECOND_ORDER_IDS = frozenset(s.cuda_id for s in activation_funcs.values() if s.grad2)
+
+
+def _bias_grad(d, x, b, dim):
+    """db from an elementwise gradient d of x: summed per channel, over all
+    of x for a (C,) bias and over each image's rows for a (B, C) one."""
+    c, trail = _shape_2d(x, dim)
+    db = d.reshape(b.shape[0] if b.ndim == 2 else 1, -1, c, trail).sum(dim=(1, 3))
+    return db if b.ndim == 2 else db[0]
+
+
+def _vmap_args(info, in_dims, tensors, b):
+    """Batch-first, contiguous `tensors` (expanded where unbatched) and the
+    bias: (B, C) where it is batched, else as it is."""
+    n = info.batch_size
+    out = [t.movedim(d, 0) if d is not None else t.expand(n, *t.shape)
+           for t, d in zip(tensors, in_dims)]
+    if in_dims[len(tensors)] is not None:
+        b = b.movedim(in_dims[len(tensors)], 0)
+    return [t.contiguous() for t in out], b.contiguous()
+
+
 class _BiasActCuda(torch.autograd.Function):
     @staticmethod
     def forward(x, b, dim, act_id, alpha, gain, clamp):
@@ -234,17 +339,10 @@ class _BiasActCuda(torch.autograd.Function):
         ctx.cfg = tuple(cfg)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, b = ctx.saved_tensors
-        dim = ctx.cfg[0]
-        dx = bias_act_bwd_cuda(g.contiguous(), x, b, *ctx.cfg)
-        db = None
-        if ctx.needs_input_grad[1]:
-            c, trail = _shape_2d(x, dim)
-            # A batched bias sums each image's own rows.
-            db = dx.reshape(b.shape[0] if b.ndim == 2 else 1, -1, c, trail).sum(dim=(1, 3))
-            db = db if b.ndim == 2 else db[0]
+        dx = _BiasActCudaGrad.apply(g.contiguous(), x, b, *ctx.cfg)
+        db = _bias_grad(dx, x, b, ctx.cfg[0]) if ctx.needs_input_grad[1] else None
         return (dx if ctx.needs_input_grad[0] else None), db, None, None, None, None, None
 
     @staticmethod
@@ -253,12 +351,64 @@ class _BiasActCuda(torch.autograd.Function):
         bias, B folds into x's outer rows; with a batched bias (each image's
         own, as in a vmapped stage-2 step) the batched-bias form takes the
         (B, C) bias."""
-        n = info.batch_size
-        x = x.movedim(in_dims[0], 0) if in_dims[0] is not None else x.expand(n, *x.shape)
-        if in_dims[1] is not None:
-            b = b.movedim(in_dims[1], 0).contiguous()
-        out = _BiasActCuda.apply(x.contiguous(), b, dim + 1, act_id, alpha, gain, clamp)
-        return out, 0
+        (x,), b = _vmap_args(info, in_dims, (x,), b)
+        return _BiasActCuda.apply(x, b, dim + 1, act_id, alpha, gain, clamp), 0
+
+
+class _BiasActCudaGrad(torch.autograd.Function):
+    """The backward kernel as a differentiable function of (g, x, b): dx =
+    g * act'(x + b) * gain (EG3D's BiasActCudaGrad). Its own backward is
+    the backward kernel again for g, and the second-order kernel for x and
+    b where act'' is not identically 0; elsewhere their gradient is 0."""
+
+    @staticmethod
+    def forward(g, x, b, dim, act_id, alpha, gain, clamp):
+        return bias_act_bwd_cuda(g, x, b, dim, act_id, alpha, gain, clamp)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        g, x, b, *cfg = inputs
+        ctx.save_for_backward(g, x, b)
+        ctx.cfg = tuple(cfg)
+
+    @staticmethod
+    def backward(ctx, gg):
+        g, x, b = ctx.saved_tensors
+        gg = gg.contiguous()
+        need_g, need_x, need_b = ctx.needs_input_grad[:3]
+        d_g = _BiasActCudaGrad.apply(gg, x, b, *ctx.cfg) if need_g else None
+        d_x = d_b = None
+        if (need_x or need_b) and ctx.cfg[1] in _SECOND_ORDER_IDS:
+            d_x = _BiasActCudaGrad2.apply(gg, g, x, b, *ctx.cfg)
+            d_b = _bias_grad(d_x, x, b, ctx.cfg[0]) if need_b else None
+        return d_g, (d_x if need_x else None), d_b, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, g, x, b, dim, act_id, alpha, gain, clamp):
+        """One launch for the B images, as `_BiasActCuda.vmap`."""
+        (g, x), b = _vmap_args(info, in_dims, (g, x), b)
+        return _BiasActCudaGrad.apply(g, x, b, dim + 1, act_id, alpha, gain, clamp), 0
+
+
+class _BiasActCudaGrad2(torch.autograd.Function):
+    """The second-order kernel (float32). Not differentiable again."""
+
+    @staticmethod
+    def forward(gg, g, x, b, dim, act_id, alpha, gain, clamp):
+        return bias_act_grad2_cuda(gg, g, x, b, dim, act_id, alpha, gain, clamp)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, _):
+        raise RuntimeError("the bias_act kernels differentiate twice, not three times")
+
+    @staticmethod
+    def vmap(info, in_dims, gg, g, x, b, dim, act_id, alpha, gain, clamp):
+        (gg, g, x), b = _vmap_args(info, in_dims, (gg, g, x), b)
+        return _BiasActCudaGrad2.apply(gg, g, x, b, dim + 1, act_id, alpha, gain, clamp), 0
 
 
 def bias_act(x, b=None, dim=1, act="linear", alpha=None, gain=None, clamp=None):

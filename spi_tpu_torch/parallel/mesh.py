@@ -12,9 +12,16 @@ as several processes, one card each (`torchrun`, `parallel/multihost.py`),
 which is PyTorch's idiom for what spi_tpu's mesh does across chips. So
 spi_tpu's `data_mesh`, `shard_batch`, `replicate` and `global_data_mesh`,
 which place arrays on a JAX mesh, have no counterpart here.
+
+GAN training (training/gan.py) runs one process a card in the same way;
+`psum_metrics` and `check_replica_consistency` are spi_tpu's two helpers
+for it, over `torch.distributed` in place of a mesh axis.
 """
 
 from __future__ import annotations
+
+import torch
+import torch.distributed as dist
 
 from spi_tpu_torch.criteria.bbox_cx import BoxCXLoss
 from spi_tpu_torch.criteria.lpips import LPIPS
@@ -22,7 +29,8 @@ from spi_tpu_torch.models.triplane import TriPlaneGenerator
 from spi_tpu_torch.training import coaches, projectors
 from spi_tpu_torch.utils.params import index_tree, stack_trees
 
-__all__ = ["index_tree", "spmd_invert", "stack_trees"]
+__all__ = ["check_replica_consistency", "index_tree", "psum_metrics", "spmd_invert",
+           "stack_trees"]
 
 
 def spmd_invert(generator: TriPlaneGenerator, lpips: LPIPS,
@@ -57,3 +65,36 @@ def spmd_invert(generator: TriPlaneGenerator, lpips: LPIPS,
         return w, noise, tuned, steps, lps, dists
 
     return run
+
+
+def _group_size() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def psum_metrics(values: torch.Tensor) -> torch.Tensor:
+    """The moment triples [1, v, v^2] of this process's `values`, stacked on a
+    new first axis and summed over the processes (spi_tpu's `psum_metrics`,
+    the analog of training_stats._sync, eg3d/torch_utils/training_stats.py:
+    245-266); in a single process, this process's triples."""
+    triple = torch.stack([torch.ones_like(values), values, values.square()])
+    if _group_size() > 1:
+        dist.all_reduce(triple)
+    return triple
+
+
+def check_replica_consistency(module: torch.nn.Module) -> list[str]:
+    """The names of the parameters and buffers of `module` that differ,
+    bitwise, in some process from rank 0's (spi_tpu's
+    `check_replica_consistency`, eg3d/torch_utils/misc.py:181-192's
+    check_ddp_consistency); [] in a single process. Every process calls it
+    and gets the same list."""
+    if _group_size() == 1:
+        return []
+    tensors = list(module.state_dict().items())
+    differs = torch.zeros(len(tensors), device=tensors[0][1].device)
+    for i, (_, t) in enumerate(tensors):
+        ref = t.detach().clone()
+        dist.broadcast(ref, src=0)
+        differs[i] = float(not torch.equal(ref, t))
+    dist.all_reduce(differs)
+    return [name for (name, _), d in zip(tensors, differs.tolist()) if d]

@@ -27,14 +27,15 @@ import torch
 import torch.distributed as dist
 
 
-def initialize() -> bool:
+def initialize(backend: str = "gloo") -> bool:
     """Join the process group that `torchrun` describes in the environment
-    (gloo, `env://`). Returns True when several processes run; with
-    WORLD_SIZE absent or 1 it changes nothing and returns False."""
+    (`env://`; gloo unless another backend is asked for). Returns True when
+    several processes run; with WORLD_SIZE absent or 1 it changes nothing
+    and returns False."""
     if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
         return False
     if not dist.is_initialized():
-        dist.init_process_group("gloo")
+        dist.init_process_group(backend)
     return dist.get_world_size() > 1
 
 

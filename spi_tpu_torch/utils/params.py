@@ -108,8 +108,10 @@ def index_tree(tree, i: int):
 
 
 def to_device(tree, device):
-    """A nest of dicts, lists and tuples of tensors with every tensor on
-    `device`."""
+    """A nest of dicts, lists and tuples of tensors (and None) with every
+    tensor on `device`."""
+    if tree is None:
+        return None
     if torch.is_tensor(tree):
         return tree.to(device)
     if isinstance(tree, dict):
