@@ -106,6 +106,21 @@ Phases (any failure exits non-zero):
      TriPlaneGenerator; then the CLI's tiny trainer in two processes on the
      card (gloo): the CLI finds the replicas of G, D and G_ema bitwise
      equal at every snapshot and leaves the process group.
+ 22. converted weights: the seeded ffhq512_128_config generator written as an
+     EG3D persistence pickle in both forms (pickle.dump, EG3D's own, and
+     torch.save), each converted by `python -m spi_tpu_torch.convert eg3d`
+     in a process of its own, every array equal to its source bitwise; the
+     npz loaded into a fresh generator on the card, one float32 'sg' step's
+     loss and gradient of w against the source module's on the same draws
+     (TOL_SYNTH); then data/native_loader.py on the host (a prefetch batch
+     equal to PIL's decode), where native/libspi_io.so loads;
+ 23. StyleGAN3-T FFHQ-1024 at its published widths (22,315,239 entries),
+     float32, batch 1, seeded: 3 forwards and backwards (the median s of
+     each after the first, peak memory, the bias_act launches of one
+     forward and one backward), the largest bias_act call's inputs kernel
+     against plain version bitwise, device ms by kind of one forward +
+     backward under torch.profiler (the FIR filters, the modulated
+     convolutions, bias_act), and one magnitude EMA renewed.
 Phase 2 also holds the splat and both bias_act kernels (f32 and bf16, a
 batched and a shared bias) under torch.func.vmap against their plain
 versions under the same vmap and a loop over the images: one launch each
@@ -116,6 +131,9 @@ double backward through `bias_act` on the card against the CPU (the
 backward kernel as the backward of the backward, the second-order kernel
 where act'' is not identically 0), and `_BiasActCudaGrad` under vmap (one
 launch).
+Phase 3 also holds a tiny StyleGAN3-T (14 layers, 32²) forward and backward
+on the card against the CPU: the output and every gradient to TOL_SYNTH,
+with bias_act_fwd and bias_act_bwd launched.
 Phase 3 also holds one tiny GAN step (spi_tpu's tiny GAN trainer,
 float32, R1 and density TV, the pipe at p = 0.5, the same draws) on the
 card against the CPU: the R1 term, the losses and every D and G gradient
@@ -129,13 +147,14 @@ renderer draws), which launches the splat and both bias_act kernels: the
 loss and every trained leaf's gradient and value to TOL_SYNTH, every other
 leaf bitwise unchanged on both.
 
-Each path (phases 3, 4, 6, 7, 9, 10, 12-21 and each tool) runs with the launch
+Each path (phases 3, 4, 6, 7, 9, 10, 12-23 and each tool) runs with the launch
 counts set to 0 just before it and fails unless each kernel it is meant
 to launch was launched: a bfloat16 path the bias_act kernels' bf16 forms.
 Prints the card's name and power limit, one `{"kernels": [...]}` line
 (the bf16 forms' launches from the bfloat16 'sg' run, the second-order
-form's from phase 20, and each kernel's launches in a plain GAN step as
-`gan_launches`), and last `{"ok":
+form's from phase 20, each kernel's launches in a plain GAN step as
+`gan_launches` and in one SG3-T forward + backward as `sg3_launches`), and
+last `{"ok":
 true, "device": {...}}`. TF32 is off throughout, as the JAX reference
 computes float32 in full.
 """
@@ -2659,7 +2678,7 @@ class KernelInputs:
         return False
 
 
-def check_kernel_inputs(calls, originals):
+def check_kernel_inputs(calls, originals, label):
     """Each recorded call (KernelInputs) again through its kernel, against
     its plain version on the same inputs: the splat within TOL_SPLAT of the
     largest entry; bias_act in float32 within TOL_ELEMWISE (absolute +
@@ -2686,9 +2705,9 @@ def check_kernel_inputs(calls, originals):
             want = ps.splat_plain(coords, g, box_warp, h, w)
             err = rel_err(got, want)
             worst[key] = float((got - want).abs().max())
-            log(f"GAN kernel inputs: splat {tuple(g.shape)} ({coords.shape[0] * coords.shape[1]} "
+            log(f"{label} kernel inputs: splat {tuple(g.shape)} ({coords.shape[0] * coords.shape[1]} "
                 f"points), {geom}: max abs err {worst[key]:.3e}, rel {err:.3e} (tol {TOL_SPLAT})")
-            check(err <= TOL_SPLAT, f"splat disagrees at the GAN's shape {tuple(g.shape)}")
+            check(err <= TOL_SPLAT, f"splat disagrees at the {label}'s shape {tuple(g.shape)}")
             continue
         fwd = key.startswith("bias_act_fwd")
         g, (x, b, dim, act_id, alpha, gain, clamp) = (None, args) if fwd else (args[0], args[1:])
@@ -2721,10 +2740,10 @@ def check_kernel_inputs(calls, originals):
             if not fwd and act in SATURATING:
                 ok |= d <= TOL_SATURATED_DX * g.float().abs() * gain
             rule = f"{TOL_BF16_ULP} bf16 ulp"
-        log(f"GAN kernel inputs: {key} {act} {tuple(x.shape)} {x.dtype}, gain {gain:.4f}, "
+        log(f"{label} kernel inputs: {key} {act} {tuple(x.shape)} {x.dtype}, gain {gain:.4f}, "
             f"clamp {clamp}: max abs err {worst[key]:.3e} ({rule}; {n_near} elements at the "
             f"clamp left out)")
-        check(bool(ok.all()), f"{key} disagrees with its plain version at the GAN's shape "
+        check(bool(ok.all()), f"{key} disagrees with its plain version at the {label}'s shape "
               f"{tuple(x.shape)}: {int((~ok).sum())} elements")
         check(n_near <= max(1e-4 * x.numel(), 1), f"{key}: {n_near} elements at the clamp")
         del got, want, d, ok
@@ -2822,7 +2841,7 @@ def phase_gan(dev):
     check(want <= set(rec.calls), f"the GAN step made no call to {sorted(want - set(rec.calls))}")
     del tr
     torch.cuda.empty_cache()
-    errs = check_kernel_inputs(rec.calls, rec.originals)
+    errs = check_kernel_inputs(rec.calls, rec.originals, "GAN")
     log("GAN kernel inputs, max abs err against the plain versions: "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     return steps[1][1], kinds
@@ -2944,6 +2963,415 @@ print("RANK_RESULT " + json.dumps({"steps": tr.step_count, "group_left": not dis
 """
 
 
+# A tiny StyleGAN3-T (14 layers, 32², 16 channels at most), phase 3.
+SG3_TINY = dict(z_dim=16, c_dim=0, w_dim=16, img_resolution=32, img_channels=3,
+                channel_base=128, channel_max=16)
+# StyleGAN3-T FFHQ-1024 at its published widths (stylegan3-t-ffhq-1024x1024.pkl;
+# spi_tpu's SG3Generator defaults), phase 23.
+SG3_T = dict(z_dim=512, c_dim=0, w_dim=512, img_resolution=1024, img_channels=3)
+SG3_T_ENTRIES = 22_315_239  # parameters plus persistent buffers
+SG3_KERNELS = ("bias_act_fwd", "bias_act_bwd")
+
+
+def tiny_sg3(device):
+    """The tiny SG3Generator's forward and backward on `device` (seeded
+    weights and z, so the same on any device), truncation 0.7, with the
+    launch counts set to 0 just before it. Returns (output, {'z' or
+    parameter: gradient}, forward launches, backward launches), on the CPU."""
+    import torch
+
+    from spi_tpu_torch.models.stylegan3 import SG3Generator
+    from spi_tpu_torch.ops import _lib
+
+    g = SG3Generator(**SG3_TINY, device=device, seed=0)
+    gen = torch.Generator().manual_seed(21)
+    z = torch.randn(2, SG3_TINY["z_dim"], generator=gen).to(device).requires_grad_(True)
+    r = torch.randn(2, 3, 32, 32, generator=gen).to(device)
+    _lib.reset_launch_counts()
+    y = g(z, None, truncation_psi=0.7)
+    fwd = dict(_lib.launch_counts)
+    (y * r).sum().backward()
+    bwd = {k: v - fwd[k] for k, v in _lib.launch_counts.items()}
+    grads = {"z": z.grad.cpu(), **{k: p.grad.cpu() for k, p in g.named_parameters()}}
+    return y.detach().cpu(), grads, fwd, bwd
+
+
+def phase_tiny_sg3(dev):
+    """The tiny SG3 generator on the card (the bias_act kernels in every
+    filtered_lrelu, affine and mapping layer) against the CPU (their plain
+    versions): the output and the gradients of z and every parameter to
+    TOL_SYNTH of each one's largest entry."""
+    out_cpu, g_cpu, fwd_cpu, bwd_cpu = tiny_sg3("cpu")
+    out, grads, fwd, bwd = tiny_sg3(dev)
+    check(not any(fwd_cpu.values()) and not any(bwd_cpu.values()), "the CPU run launched kernels")
+    check(fwd["bias_act_fwd"] > 0 and bwd["bias_act_bwd"] > 0,
+          f"the tiny SG3 skipped a kernel: forward {fwd}, backward {bwd}")
+    check(set(grads) == set(g_cpu), "the card and the CPU give gradients to other weights")
+    errs = sorted(((rel_err(grads[k], g_cpu[k]), k) for k in g_cpu), reverse=True)
+    out_err = rel_err(out, out_cpu)
+    log(f"tiny SG3: launches forward {fwd['bias_act_fwd']} bias_act_fwd, backward "
+        f"{bwd['bias_act_bwd']} bias_act_bwd; card vs CPU, error relative to max |ref|: output "
+        f"{out_err:.2e}, {len(errs)} gradients, the worst "
+        + ", ".join(f"{k} {e:.2e}" for e, k in errs[:4]) + f" (tol {TOL_SYNTH})")
+    check(math.isfinite(out_err) and out_err <= TOL_SYNTH, f"tiny SG3 output: {out_err:.3e}")
+    check(all(math.isfinite(e) and e <= TOL_SYNTH for e, _ in errs),
+          f"tiny SG3 gradient of {errs[0][1]} disagrees: {errs[0][0]:.3e}")
+
+
+def persistence_meta(module, class_name, init_kwargs=None):
+    """EG3D's persistence record of `module` (torch_utils/persistence.py:37):
+    its raw __dict__ state on the CPU, the constant `resample_filter`
+    buffers included as EG3D pickles them, each child a record of its own."""
+    state = {
+        "training": False,
+        "_parameters": {k: v.detach().cpu().clone() for k, v in module._parameters.items()},
+        "_buffers": {k: v.cpu().clone() for k, v in module._buffers.items()
+                     if v is not None and (k not in module._non_persistent_buffers_set
+                                           or k == "resample_filter")},
+        "_modules": {k: persistence_meta(m, type(m).__name__) for k, m in module._modules.items()},
+    }
+    if init_kwargs is not None:
+        state["_init_args"] = ()
+        state["_init_kwargs"] = init_kwargs
+    return {"type": "class", "version": 6, "class_name": class_name, "state": state,
+            "module_src": "raise RuntimeError('the embedded class source was run')"}
+
+
+def write_eg3d_pickle(module, init_kwargs, path, form):
+    """An EG3D network pickle {'G_ema': module} at `path`: every module a
+    reduce call to torch_utils.persistence._reconstruct_persistent_obj(meta);
+    `form` 'pickle.dump' (EG3D's own) or 'torch.save'."""
+    import pickle
+    import types
+
+    import torch
+
+    def _reconstruct_persistent_obj(meta):  # named in the pickle; the converter never calls it
+        raise AssertionError("the converter rebuilt a module")
+
+    class Persistent:
+        def __init__(self, meta):
+            self.meta = meta
+
+        def __reduce__(self):
+            return (_reconstruct_persistent_obj, (self.meta,))
+
+    def wrap(meta):
+        state = meta["state"]
+        return Persistent({**meta, "state": {**state, "_modules": {
+            k: wrap(m) for k, m in state["_modules"].items()}}})
+
+    pers = types.ModuleType("torch_utils.persistence")
+    pers._reconstruct_persistent_obj = _reconstruct_persistent_obj
+    _reconstruct_persistent_obj.__module__ = pers.__name__
+    _reconstruct_persistent_obj.__qualname__ = "_reconstruct_persistent_obj"
+    names = ("torch_utils", "torch_utils.persistence")
+    saved = {k: sys.modules.get(k) for k in names}
+    sys.modules.update({"torch_utils": types.ModuleType("torch_utils"), pers.__name__: pers})
+    try:
+        payload = {"G_ema": wrap(persistence_meta(module, "TriPlaneGenerator", init_kwargs))}
+        if form == "torch.save":
+            torch.save(payload, path)
+        else:
+            with open(path, "wb") as f:
+                pickle.dump(payload, f, protocol=4)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def sg_loss_and_grad(g, lpips, target, camera, w, noise, render_draws):
+    """One float32 'sg' projector step's loss and gradient of w, from w with
+    the given noise maps and renderer draws (no w noise)."""
+    import torch
+
+    from spi_tpu_torch.training.projectors import ProjectorSettings, _fixed, _image_loss
+
+    w = w.clone().requires_grad_(True)
+    loss, _ = _image_loss(g, lpips, ProjectorSettings(mode="sg", num_steps=1), noise, w,
+                          torch.zeros_like(w), 0.0, _fixed(lpips, "sg", target, camera),
+                          render_draws)
+    loss.backward(inputs=[w])
+    return loss.detach(), w.grad
+
+
+def phase_convert(dev):
+    """Converted weights drive the inversion at full width: the seeded
+    ffhq512_128_config generator written as an EG3D persistence pickle in
+    both forms (pickle.dump, EG3D's own, and torch.save), each converted by
+    `python -m spi_tpu_torch.convert eg3d` in a process of its own (the two
+    at once), every array equal to its source tensor bitwise and the json
+    to the init kwargs; the npz loaded into a fresh generator on the card;
+    one float32 'sg' step's loss and gradient of w from the converted
+    weights against the source module's, on the same draws, within
+    TOL_SYNTH (the splat's f32 atomics add in run-dependent order)."""
+    import dataclasses
+    import os
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from spi_tpu_torch.criteria.lpips import LPIPS
+    from spi_tpu_torch.models import TriPlaneGenerator, ffhq512_128_config
+    from spi_tpu_torch.models.rendering.renderer import draw_randoms
+    from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.utils import camera as cam
+    from spi_tpu_torch.utils.checkpoint import load_flat_params, load_npz
+    from spi_tpu_torch.utils.params import extract_noise
+
+    here = Path(__file__).resolve().parent
+    root = here / "build" / "convert"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    src = TriPlaneGenerator(ffhq512_128_config(), device=dev, seed=0)
+    want = {k: v.cpu().numpy() for k, v in src.state_dict().items()}
+    n_weights = sum(p.numel() for p in src.parameters())
+    n_entries = sum(v.size for v in want.values())
+    init_kwargs = dataclasses.asdict(src.cfg)
+    t0 = time.perf_counter()
+    procs = {}
+    for form in ("pickle.dump", "torch.save"):
+        pkl = root / f"{form}.pkl"
+        write_eg3d_pickle(src, init_kwargs, pkl, form)
+        procs[form] = subprocess.Popen(
+            [sys.executable, "-m", "spi_tpu_torch.convert", "eg3d", str(pkl),
+             str(root / f"{form}.npz")], cwd=here, env=dict(os.environ, PYTHONPATH=str(here)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for form, proc in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"convert eg3d on the {form} pickle failed: {out[-2000:]}")
+        size = (root / f"{form}.pkl").stat().st_size
+        log(f"convert: the {form} pickle, {size / 2**20:.1f} MiB, {n_weights} weights and "
+            f"{n_entries - n_weights} buffer entries: "
+            f"{out.strip().splitlines()[-1]}")
+    log(f"convert: both pickles written and converted in {time.perf_counter() - t0:.1f} s")
+    for form in procs:
+        flat = load_npz(str(root / f"{form}.npz"))
+        check(sorted(flat) == sorted(want), f"the {form} npz has other keys than the module")
+        bad = [k for k in want
+               if flat[k].dtype != np.float32 or not np.array_equal(flat[k], want[k])]
+        check(not bad, f"the {form} npz differs from its source tensors: {bad[:4]}")
+        with open(root / f"{form}.npz.json") as f:
+            check(json.load(f) == json.loads(json.dumps(init_kwargs, default=str)),
+                  f"the {form} json is not the init kwargs")
+    log(f"convert: both npz files equal the source's {len(want)} tensors bitwise")
+
+    g = TriPlaneGenerator(ffhq512_128_config(), device=dev, seed=1)
+    load_flat_params(g, load_npz(str(root / "pickle.dump.npz")))
+    lpips = LPIPS(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    res = src.cfg.img_resolution
+    target = torch.tanh(torch.randn(1, 3, res, res, device=dev, generator=gen))
+    camera = cam.canonical_camera(device=dev)
+    with torch.no_grad():
+        w = src.mapping(torch.randn(1, src.z_dim, device=dev, generator=gen), camera)[:, :1]
+    noise = {k: v.clone() for k, v in extract_noise(src).items()}
+    nrr = src.cfg.neural_rendering_resolution
+    draws = draw_randoms(src.cfg.rendering, 1, nrr * nrr, dev, gen)
+    _lib.reset_launch_counts()
+    runs = {name: sg_loss_and_grad(m, lpips, target, camera, w, noise, draws)
+            for name, m in (("source", src), ("converted", g))}
+    launches = dict(_lib.launch_counts)
+    (loss_s, grad_s), (loss_c, grad_c) = runs["source"], runs["converted"]
+    loss_err = float((loss_c - loss_s).abs() / loss_s.abs())
+    grad_err = rel_err(grad_c, grad_s)
+    log(f"convert: 'sg' step from the converted weights against the source module: loss "
+        f"{float(loss_c):.6f} / {float(loss_s):.6f} (rel err {loss_err:.2e}), gradient of w rel "
+        f"err {grad_err:.2e} (tol {TOL_SYNTH}); launches {launches}")
+    check(math.isfinite(loss_err) and loss_err <= TOL_SYNTH, f"convert: loss {loss_err:.3e}")
+    check(math.isfinite(grad_err) and grad_err <= TOL_SYNTH, f"convert: w gradient {grad_err:.3e}")
+    for k in INVERSION_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was never launched on the converted-weights path")
+    del src, g, lpips, runs
+
+
+def phase_native_loader():
+    """data/native_loader.py on this machine's host: where native/libspi_io.so
+    loads, a prefetch batch of four 64² PNGs equal to PIL's decode (PNG is
+    lossless and no resize is made, so to 1e-6) and a bad file marked;
+    where it does not, `available()` is False (spi_tpu's behaviour)."""
+    import ctypes
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    from PIL import Image
+
+    from spi_tpu_torch.data import native_loader
+
+    if not native_loader.available():
+        try:
+            ctypes.CDLL(str(Path(__file__).resolve().parent / "native" / "libspi_io.so"))
+            reason = "it loads now"
+        except OSError as e:
+            reason = str(e)
+        log(f"native loader: native/libspi_io.so does not load on this machine ({reason}); "
+            "available() is False and decode_image returns None")
+        return
+    root = Path(__file__).resolve().parent / "build" / "native_loader"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    arrays = [rng.integers(0, 255, (64, 64, 3), np.uint8) for _ in range(4)]
+    paths = []
+    for i, a in enumerate(arrays):
+        Image.fromarray(a).save(root / f"{i}.png")
+        paths.append(str(root / f"{i}.png"))
+    (root / "bad.png").write_bytes(b"broken")
+    loader = native_loader.NativeLoader(paths + [str(root / "bad.png")], out_size=64, batch=5,
+                                        n_threads=1, shuffle=False)
+    try:
+        t0 = time.perf_counter()
+        imgs, idx = loader.next()
+        first_s = time.perf_counter() - t0
+    finally:
+        loader.close()
+    check(sorted(idx.tolist()) == [-5, 0, 1, 2, 3], f"native loader indices {idx.tolist()}")
+    for slot, i in enumerate(idx.tolist()):
+        if i < 0:
+            check(not imgs[slot].any(), "the bad file's slot is not zero-filled")
+            continue
+        want = arrays[i].astype(np.float32).transpose(2, 0, 1) / 127.5 - 1.0
+        check(float(np.abs(imgs[slot] - want).max()) <= 1e-6, f"native loader image {i}")
+    log(f"native loader: a batch of 4 PNGs and a bad file in {first_s * 1e3:.1f} ms, equal to "
+        "PIL's decode; the bad file marked")
+
+
+def phase_sg3(dev, runs=3):
+    """StyleGAN3-T FFHQ-1024 at its published widths, float32, batch 1,
+    seeded weights: `runs` forwards and backwards (the median s of each
+    after the first, the peak memory, the launches of one forward and one
+    backward), the largest bias_act call's inputs kernel against plain
+    version bitwise (KernelInputs), one forward + backward under
+    torch.profiler (device ms by kind: the FIR filters' depthwise
+    convolutions, the modulated convolutions, bias_act), and last one
+    magnitude EMA renewed (update_emas) against its rule on the layer's
+    input. Returns the launches of one forward + backward."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from spi_tpu_torch.models.stylegan3 import SG3Generator
+    from spi_tpu_torch.ops import _lib
+
+    g = SG3Generator(**SG3_T, device=dev, seed=0)
+    entries = sum(v.numel() for v in g.state_dict().values())
+    check(entries == SG3_T_ENTRIES, f"SG3-T has {entries} entries, not {SG3_T_ENTRIES}")
+    gen = torch.Generator().manual_seed(23)
+    z = torch.randn(1, SG3_T["z_dim"], generator=gen).to(dev)
+    res = SG3_T["img_resolution"]
+    r = torch.randn(1, 3, res, res, generator=gen).to(dev)
+
+    def fwd_bwd():
+        g.zero_grad(set_to_none=True)
+        y = g(z, None)
+        (y * r).sum().backward()
+        return y
+
+    fwd_s, bwd_s, fwd_n, bwd_n = [], [], {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    for _ in range(runs):
+        g.zero_grad(set_to_none=True)
+        before = dict(_lib.launch_counts)
+        t0 = time.perf_counter()
+        y = g(z, None)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mid = dict(_lib.launch_counts)
+        (y * r).sum().backward()
+        torch.cuda.synchronize()
+        fwd_s.append(t1 - t0)
+        bwd_s.append(time.perf_counter() - t1)
+        fwd_n = {k: mid[k] - before[k] for k in mid}
+        bwd_n = {k: v - mid[k] for k, v in _lib.launch_counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: fwd_n[k] + bwd_n[k] for k in fwd_n}
+    check(tuple(y.shape) == (1, 3, res, res) and bool(torch.isfinite(y).all()),
+          "SG3-T output not finite or of the wrong shape")
+    check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+              for p in g.parameters()), "SG3-T: a parameter gradient is missing or not finite")
+    fwd_med, bwd_med = statistics.median(fwd_s[1:]), statistics.median(bwd_s[1:])
+    log(f"SG3-T FFHQ-1024 (float32, batch 1, {entries} entries): forward "
+        f"{[round(t, 5) for t in fwd_s]} s, backward {[round(t, 5) for t in bwd_s]} s; median "
+        f"after the first: forward {fwd_med:.5f} s, backward {bwd_med:.5f} s; peak device "
+        f"memory {peak:.3f} GiB")
+    log(f"SG3-T launches: one forward {fwd_n['bias_act_fwd']} bias_act_fwd ("
+        f"{2 * (len(g.synthesis.layer_names))} in the {len(g.synthesis.layer_names)} layers' "
+        f"filtered_lrelu), one backward {bwd_n['bias_act_bwd']} bias_act_bwd; all {launches}")
+    for k in SG3_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was never launched on the SG3 path")
+    del y
+
+    with KernelInputs() as rec:
+        fwd_bwd()
+    g.zero_grad(set_to_none=True)
+    check({"bias_act_fwd", "bias_act_bwd"} <= set(rec.calls),
+          f"SG3 made no call to {sorted({'bias_act_fwd', 'bias_act_bwd'} - set(rec.calls))}")
+    torch.cuda.empty_cache()
+    errs = check_kernel_inputs(rec.calls, rec.originals, "SG3-T")
+    del rec
+    log("SG3-T kernel inputs, max abs err against the plain versions: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    check(all(v == 0 for v in errs.values()), f"SG3-T: a float32 bias_act call is not bitwise {errs}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1)) as prof:
+        for _ in range(3):
+            fwd_bwd()
+            torch.cuda.synchronize()  # the active step holds one pass's kernels alone
+            prof.step()
+    g.zero_grad(set_to_none=True)
+    per_kernel = device_kernels(prof)
+    total = sum(t for t, _ in per_kernel.values())
+    kinds = {}
+    for name, (t, _) in per_kernel.items():
+        low = name.lower()
+        if "bias_act" in low:
+            kind = "bias_act kernels"
+        elif "depthwise" in low:
+            kind = "FIR filters (depthwise convolution)"
+        elif any(f in low for f in CONV_OR_MATMUL):
+            kind = "convolution / matmul (the modulated convolutions, affines, mapping)"
+        else:
+            kind = next((k for frag, k in KINDS if frag in low), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + t
+    log(f"SG3-T profile: one forward + backward, device time {total:.3f} ms in "
+        f"{len(per_kernel)} kernels, busy {100 * total / ((fwd_med + bwd_med) * 1e3):.1f}% of "
+        f"the median forward + backward {(fwd_med + bwd_med) * 1e3:.3f} ms")
+    for kind, t in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        log(f"SG3-T profile kind {kind:70s} {t:10.3f} ms  {100 * t / total:5.1f}%")
+    for name, (t, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]:
+        log(f"SG3-T profile kernel {t:10.3f} ms {n:6d}x  {name[:110]}")
+
+    name = g.synthesis.layer_names[10]
+    layer = getattr(g.synthesis, name)
+    seen = {}
+    hook = layer.register_forward_pre_hook(lambda m, args: seen.update(x=args[0].double()))
+    old = float(layer.magnitude_ema)
+    try:
+        with torch.no_grad():
+            g(z, None, update_emas=True)
+    finally:
+        hook.remove()
+    cur = float(seen["x"].square().mean())
+    want = cur + layer.magnitude_ema_beta * (old - cur)
+    new = float(layer.magnitude_ema)
+    log(f"SG3-T magnitude EMA of {name}: {old:.6f} -> {new:.6f} (its input's mean square "
+        f"{cur:.6f}; the rule gives {want:.6f})")
+    check(abs(new - want) <= 1e-5 * abs(want), f"SG3-T magnitude EMA {new} against {want}")
+    del g, seen
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2986,6 +3414,7 @@ def main(argv=None) -> int:
     phase(3, "tiny RotBbox step card vs CPU", phase_tiny_rotbbox, dev)
     phase(3, "tiny ZSSGAN step card vs CPU", phase_tiny_zssgan, dev)
     phase(3, "tiny GAN step (R1, density TV) card vs CPU", phase_tiny_gan, dev)
+    phase(3, "tiny StyleGAN3 forward and backward card vs CPU", phase_tiny_sg3, dev)
     # 'sg' in turns, float32, bf16, bf16, float32; the first run of each
     # gives the pivot and the launch counts.
     runs = {"float32": [], "bfloat16": []}
@@ -3028,6 +3457,10 @@ def main(argv=None) -> int:
     gan_launches, gan_s = phase(20, "GAN training at full width", phase_gan, dev)
     torch.cuda.empty_cache()
     phase(21, "the GAN CLI and two processes", phase_gan_cli, dev)
+    torch.cuda.empty_cache()
+    phase(22, "converted EG3D pickles drive an 'sg' step at full width", phase_convert, dev)
+    phase(22, "the native image loader on the host", phase_native_loader)
+    sg3_launches = phase(23, "StyleGAN3-T FFHQ-1024 at full width", phase_sg3, dev)
     for dtype, r in res.items():
         log(f"{dtype}: median s/step after the second: sg {r['sg'][0]:.5f} (in turns: "
             f"{r['sg'][1]:.5f}), mir {r['mir']:.5f}, stage-2 tune {r['tune']:.5f}; RotBbox "
@@ -3040,6 +3473,7 @@ def main(argv=None) -> int:
         dtype = "bfloat16" if k["name"].endswith("_bf16") else "float32"
         k["launches"] = res[dtype]["launches"][k["name"]]
         k["gan_launches"] = gan_launches[k["name"]]  # in a plain GAN step (phase 20)
+        k["sg3_launches"] = sg3_launches[k["name"]]  # in one SG3-T forward + backward (23)
     # The second-order form is on no inversion path; its path is GAN
     # training's R1 step, where D's lrelu and linear need none of it.
     grad2 = next(k for k in kernels if k["name"] == "bias_act_grad2")

@@ -3,7 +3,7 @@
 plus --device and --tiny).
 
 Loads a (usually SPI-tuned) EG3D generator npz twice, a frozen and a
-trainable copy, and CLIP npz weights (`python -m spi_tpu.convert clip`
+trainable copy, and CLIP npz weights (`python -m spi_tpu_torch.convert clip`
 writes them; `load_flat_params` reads them as they are), runs the
 twin-generator directional-CLIP loop in float32, writes a sample grid
 every --output_interval steps and checkpoint/final.npz (every key of the
@@ -61,7 +61,7 @@ def parse_args(argv=None):
     p.add_argument("--auto_layer_batch", type=int, default=8)
     p.add_argument("--clip_ckpt_dir", type=str, default="checkpoints/clip",
                    help="dir with ViT-B-32.npz / ViT-B-16.npz / RN50.npz "
-                        "from `python -m spi_tpu.convert clip ...`")
+                        "from `python -m spi_tpu_torch.convert clip ...`")
     p.add_argument("--bpe_path", type=str, default=None,
                    help="bpe_simple_vocab_16e6.txt.gz for the tokenizer")
     p.add_argument("--ide3d", action="store_true", default=False,

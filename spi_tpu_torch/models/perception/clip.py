@@ -6,7 +6,8 @@ the directional loss, 'RN50' for the texture loss).
 Parameter and buffer names are OpenAI CLIP's state_dict names
 (`visual.transformer.resblocks.{i}.attn.in_proj_weight`, `mlp.c_fc`,
 `ln_1`, ...), which are spi_tpu's pytree paths, so `load_flat_params`
-reads both spi_tpu's flattened parameters and a `convert clip` npz.
+reads both spi_tpu's flattened parameters and the npz of `python -m
+spi_tpu_torch.convert clip`.
 Attention is plain matmul -> softmax -> matmul, LayerNorm and quick-GELU
 plain ops, as spi_tpu computes them (no kernel stands behind them there).
 The ResNet tower's batch norm is the eval form with stored statistics.

@@ -87,3 +87,15 @@ class VGGFeatures(nn.Module):
             if idx >= max_layer:
                 break
         return outputs
+
+
+# ImageNet normalization of torchvision-pretrained VGG (inputs in [0, 1]).
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def imagenet_normalize(x01):
+    """(N, 3, H, W) in [0, 1] -> ImageNet-normalized."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=x01.dtype, device=x01.device)
+    std = torch.tensor(IMAGENET_STD, dtype=x01.dtype, device=x01.device)
+    return (x01 - mean[None, :, None, None]) / std[None, :, None, None]

@@ -117,3 +117,17 @@ def upsample2d(x, f, up=2, padding=0, flip_filter=False, gain=1.0):
         pady1 + (fh - upy) // 2,
     ]
     return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter, gain=gain * upx * upy)
+
+
+def downsample2d(x, f, down=2, padding=0, flip_filter=False, gain=1.0):
+    """Downsample with the given filter (EG3D upfirdn2d.py:344-370)."""
+    downx, downy = _parse_scaling(down)
+    padx0, padx1, pady0, pady1 = _parse_padding(padding)
+    fw, fh = filter_size(f)
+    p = [
+        padx0 + (fw - downx + 1) // 2,
+        padx1 + (fw - downx) // 2,
+        pady0 + (fh - downy + 1) // 2,
+        pady1 + (fh - downy) // 2,
+    ]
+    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter, gain=gain)

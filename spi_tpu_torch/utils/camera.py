@@ -64,6 +64,14 @@ def lookat_pose(h, v, lookat_position, radius: float = CANONICAL_RADIUS):
     return create_cam2world_matrix(normalize_vecs(lookat - origins), origins)
 
 
+def fov_to_intrinsics(fov_degrees: float, device=None):
+    """(3, 3) normalized intrinsics from a field of view in degrees
+    (eg3d/camera_utils.py:140-149)."""
+    focal = 1.0 / (math.tan(fov_degrees * 3.14159 / 360) * 1.414)
+    return torch.tensor([[focal, 0, 0.5], [0, focal, 0.5], [0, 0, 1]], dtype=torch.float32,
+                        device=device)
+
+
 def default_intrinsics(device=None):
     return torch.tensor([[CANONICAL_FOCAL, 0, 0.5], [0, CANONICAL_FOCAL, 0.5], [0, 0, 1]],
                         dtype=torch.float32, device=device)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -151,3 +152,15 @@ def cast_call(module: nn.Module, dtype: torch.dtype, *args, **kwargs):
     tensors = {k: v.to(dtype) if v.is_floating_point() else v
                for k, v in itertools.chain(module.named_parameters(), module.named_buffers())}
     return torch.func.functional_call(module, tensors, args, kwargs)
+
+
+def count_params(tree) -> int:
+    """Entries in a module's parameters, or in a nest of dicts, lists and
+    tuples of tensors or arrays (spi_tpu's count over a pytree's leaves)."""
+    if isinstance(tree, nn.Module):
+        return sum(p.numel() for p in tree.parameters())
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_params(v) for v in tree)
+    return tree.numel() if torch.is_tensor(tree) else int(np.size(tree))

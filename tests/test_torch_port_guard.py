@@ -5,6 +5,7 @@
 - Entry points default to CUDA and raise when no GPU is present, rather
   than running on the CPU unasked.
 - chip_smoke.py fails, and prints no result, without a GPU.
+- The port's texts point users at the port's own entry points.
 """
 
 import ast
@@ -39,6 +40,15 @@ def _forbidden(name: str) -> bool:
 def test_port_imports_no_jax(path):
     bad = [n for n in _imported_modules(path) if _forbidden(n)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sends_no_user_to_the_jax_package(path):
+    """No help text, docstring or message of the port tells a user to run a
+    module of the JAX package (`python -m spi_tpu.convert ...`): the port's
+    own entry points are `python -m spi_tpu_torch.*`."""
+    text = path.read_text()
+    assert "python -m spi_tpu." not in text, f"{path.relative_to(ROOT)} names a spi_tpu module"
 
 
 def test_guard_sees_forbidden_imports(tmp_path):
