@@ -8,8 +8,10 @@ Phases (any failure exits non-zero):
      atomics from the SASS (no CAS-loop shared atomic anywhere);
   2. hold each kernel against its plain PyTorch version on the card at
      the shapes its path gives it (the splat also at a fine and a
-     two-camera pass of a full-width render of phase 4's model; bias_act
-     in float32 and in bfloat16), and time kernel, plain version and
+     two-camera pass of a full-width render of phase 4's model; the
+     triplane lookup bitwise at the splat's point sets and a GAN coarse
+     pass, in float32 and bfloat16 planes; bias_act in float32 and in
+     bfloat16), and time kernel, plain version and
      PyTorch library yardstick, both back-to-back and device-only
      (tools/timing.py), beside the roofline bound; with --parent, time
      each such checkout's splat and win_scatter kernels in turns with this
@@ -121,10 +123,10 @@ Phases (any failure exits non-zero):
      against plain version bitwise, device ms by kind of one forward +
      backward under torch.profiler (the FIR filters, the modulated
      convolutions, bias_act), and one magnitude EMA renewed.
-Phase 2 also holds the splat and both bias_act kernels (f32 and bf16, a
-batched and a shared bias) under torch.func.vmap against their plain
-versions under the same vmap and a loop over the images: one launch each
-for the batch.
+Phase 2 also holds the splat, the lookup (f32 and bf16 planes, bitwise)
+and both bias_act kernels (f32 and bf16, a batched and a shared bias)
+under torch.func.vmap against their plain versions under the same vmap
+and a loop over the images: one launch each for the batch.
 Phase 2 also holds bias_act's second-order kernel against its plain
 version (every activation, with and without clamp, the kink row), a
 double backward through `bias_act` on the card against the CPU (the
@@ -149,7 +151,12 @@ leaf bitwise unchanged on both.
 
 Each path (phases 3, 4, 6, 7, 9, 10, 12-23 and each tool) runs with the launch
 counts set to 0 just before it and fails unless each kernel it is meant
-to launch was launched: a bfloat16 path the bias_act kernels' bf16 forms.
+to launch was launched: a bfloat16 path the bias_act kernels' and the
+lookup's bf16 forms. The lookup runs once a render pass: 2 a 'sg',
+'mir' or recon-only step, 10 a RotBbox regularizer step, 4 a plain GAN
+step and 6 one with density TV; each profile prints the
+`vectorized_gather_kernel` time that remains (the kernel of PyTorch's
+gather that ran the lookup before).
 Prints the card's name and power limit, one `{"kernels": [...]}` line
 (the bf16 forms' launches from the bfloat16 'sg' run, the second-order
 form's from phase 20, each kernel's launches in a plain GAN step as
@@ -167,7 +174,8 @@ import subprocess
 import sys
 import time
 
-from spi_tpu_torch.tools.timing import bound_ms, time_ms  # fails outside a checkout
+from spi_tpu_torch.tools.step_time import device_kernels  # fails outside a checkout
+from spi_tpu_torch.tools.timing import bound_ms, time_ms
 
 TOL_SPLAT = 1e-4     # relative to max |ref|: f32 atomics add in run-dependent order
 TOL_SCATTER = 1e-5   # relative to max |ref|: the probes' f32 atomics add in any order
@@ -195,9 +203,18 @@ RMS_BF16 = 0.05
 BF16_FACTOR = 2.0
 
 # The kernels each path is meant to launch.
-INVERSION_KERNELS = ("plane_splat", "bias_act_fwd", "bias_act_bwd")
-BF16_KERNELS = ("plane_splat", "bias_act_fwd_bf16", "bias_act_bwd_bf16")
+INVERSION_KERNELS = ("plane_splat", "plane_sample", "bias_act_fwd", "bias_act_bwd")
+BF16_KERNELS = ("plane_splat", "plane_sample_bf16", "bias_act_fwd_bf16", "bias_act_bwd_bf16")
 PATH_KERNELS = {"float32": INVERSION_KERNELS, "bfloat16": BF16_KERNELS}
+# The lookup kernel's form for a path's planes (the generator's compute dtype).
+SAMPLE_KERNEL = {"float32": "plane_sample", "bfloat16": "plane_sample_bf16"}
+
+
+def check_lookups(label, step, dtype, want):
+    """Fail unless one step launched the lookup kernel `want` times (one
+    a render pass)."""
+    n = step[SAMPLE_KERNEL[dtype]]
+    check(n == want, f"{label}: {n} {SAMPLE_KERNEL[dtype]} launches a step, not {want}")
 
 
 def tag(dtype):
@@ -314,35 +331,45 @@ def sass_atomics(path):
     return counts
 
 
-def phase_splat(dev, model, parents=()):
-    """Row 1: the splat against its plain version at the coarse pass (the
-    canonical camera's 128^2 rays x 48 stratified samples), a fine pass and
-    the 'mir' two-camera pass of a full-width render, the RotBbox rot
-    term's four-camera coarse and fine passes, the TV loss's 2,000 free
-    points (no ray geometry), and the coarse points with an eighth moved onto two
-    planes' edge and an eighth outside all three. Per shape:
-    the reductions the kernel issues (distinct (tile, plane, texel) keys x
-    channel groups, counted in plain PyTorch), device-only and back-to-back
-    times, and the bound. Each parent checkout's kernel is timed in turns
-    with this one."""
-    import dataclasses
-
+def pass_points(dev, model):
+    """The point sets of phase 2's triplane kernels, {label: ((1, P, 3)
+    points, RayGeom or None)}: the coarse pass (the canonical camera's
+    128^2 rays x 48 stratified samples), a fine pass and the 'mir'
+    two-camera pass of a full-width render, the RotBbox rot term's
+    four-camera coarse and fine passes, the TV loss's 2,000 free points
+    (no ray geometry), and the coarse points with an eighth moved onto two
+    planes' edge and an eighth outside all three ('border')."""
     import torch
 
     from spi_tpu_torch.ops import plane_splat as ps
     from spi_tpu_torch.tools.splat_tiles import coarse_pass_points, render_points, rotbbox_points
-    from spi_tpu_torch.tools.timing import device_ms, enqueue_us
 
-    h = w = 256
-    c = 32
     coarse = coarse_pass_points(dev)
     border = coarse.clone()
     q = coarse.shape[1] // 8
     border[0, :q] = torch.tensor([0.499, 0.0, 0.0], device=dev)  # on the edge of planes 0, 1
     border[0, q:2 * q] = torch.tensor([0.75, 0.75, 0.75], device=dev)  # outside all three
     geom = ps.RayGeom(1, 128, 128, 48)
-    shapes = {"coarse": (coarse, geom), **render_points(dev, model),
-              **rotbbox_points(dev, model), "border": (border, geom)}
+    return {"coarse": (coarse, geom), **render_points(dev, model),
+            **rotbbox_points(dev, model), "border": (border, geom)}
+
+
+def phase_splat(dev, model, parents=()):
+    """Row 1: the splat against its plain version at each of `pass_points`'
+    sets. Per shape: the reductions the kernel issues (distinct (tile,
+    plane, texel) keys x channel groups, counted in plain PyTorch),
+    device-only and back-to-back times, and the bound. Each parent
+    checkout's kernel is timed in turns with this one."""
+    import dataclasses
+
+    import torch
+
+    from spi_tpu_torch.ops import plane_splat as ps
+    from spi_tpu_torch.tools.timing import device_ms, enqueue_us
+
+    h = w = 256
+    c = 32
+    shapes = pass_points(dev, model)
     gen = torch.Generator(device=dev).manual_seed(1)
     inputs, row = {}, None
     for label, (coords, geom) in shapes.items():
@@ -391,6 +418,119 @@ def phase_splat(dev, model, parents=()):
         turns(parent, "plane_splat", inputs)
     return {"name": "plane_splat", "route": "cuda", "source": "spi_tpu_torch/csrc/plane_splat.cu",
             "replaces": "spi_tpu/ops/plane_splat.py:113", **row}
+
+
+GAN_POINTS = (8, 64, 48)  # a GAN coarse pass: batch 8, nrr 64 (64^2 rays), 48 samples
+
+
+def touched_rows(coords, h, w, box_warp=1.0):
+    """The distinct in-range corner rows of the (N, 3, H*W) tables that the
+    lookup of (N, M, 3) points reads: what the data needs, for the bound."""
+    import torch
+
+    from spi_tpu_torch.ops import plane_splat as ps
+
+    fx, fy = ps._plane_texels(coords, box_warp, h, w)  # (N * 3, M)
+    x0, y0 = torch.floor(fx).long(), torch.floor(fy).long()
+    base = torch.arange(fx.shape[0], device=fx.device)[:, None] * (h * w)
+    keys = []
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        xi, yi = x0 + dx, y0 + dy
+        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        keys.append((base + yi * w + xi)[valid])
+    return int(torch.unique(torch.cat(keys)).numel())
+
+
+def phase_plane_sample(dev, model):
+    """Row 7: the lookup kernel (the forward of `sample_planes`) against
+    `sample_planes_plain` with torch.equal, in float32 and bfloat16 planes,
+    at each of `pass_points`' sets and at a GAN coarse pass (GAN_POINTS: 8
+    tables of 64^2 rays x 48 samples, 1,572,864 points). Both compute the
+    same IEEE-rounded operations in the same order, so any difference is a
+    fault. Per set: device-only and back-to-back times, the bound (the
+    coordinates, the distinct corner rows this set reads and the float32
+    output, each once), the plain version's time and F.grid_sample's on
+    the (N * 3, C, H, W) view of the planes with their projected grid (for
+    bfloat16 planes, grid_sample's bfloat16 form: a bf16 grid and bf16
+    output, the nearest single call). Returns the two rows of the kernels
+    line (the coarse pass's numbers)."""
+    import torch
+    import torch.nn.functional as F
+
+    from spi_tpu_torch.ops import plane_splat as ps
+    from spi_tpu_torch.tools.splat_tiles import coarse_pass_points
+    from spi_tpu_torch.tools.timing import device_ms, enqueue_us
+
+    h = w = 256
+    c = 32
+    n_gan, res_gan, s_gan = GAN_POINTS
+    gan = coarse_pass_points(dev, res_gan, s_gan)
+    sets = {label: pts for label, (pts, _) in pass_points(dev, model).items()}
+    sets["GAN coarse"] = torch.cat([gan * (1.0 - 0.01 * i) for i in range(n_gan)])
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tables = torch.randn(n_gan, 3, h * w, c, device=dev, generator=gen)
+    rows = []
+    for dtype, name in ((torch.float32, "plane_sample"), (torch.bfloat16, "plane_sample_bf16")):
+        all_planes = tables.to(dtype)
+        row, worst, device_sets = None, 0.0, {}
+        for label, coords in sets.items():
+            n, m, _ = coords.shape
+            planes = all_planes[:n].contiguous()
+            got = ps.sample_planes_cuda(planes, coords, 1.0)
+            want = ps.sample_planes_plain(planes, coords, 1.0)
+            torch.cuda.synchronize()
+            equal = torch.equal(got, want)
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            view = planes.reshape(n * 3, h, w, c).permute(0, 3, 1, 2)  # (N * 3, C, H, W)
+            grid = ps.project_onto_planes(coords * 2.0).reshape(n * 3, 1, m, 2).to(dtype)
+
+            def kernel():
+                return ps.sample_planes_cuda(planes, coords, 1.0)
+
+            def plain():
+                return ps.sample_planes_plain(planes, coords, 1.0)
+
+            def lib():
+                return F.grid_sample(view, grid, mode="bilinear", padding_mode="zeros",
+                                     align_corners=False)
+
+            lib_diff = float((lib().float()[:, :, 0].permute(0, 2, 1).reshape(n, 3, m, c)
+                              - got).abs().max())
+            del got, want
+            t = {"kernel": (time_ms(kernel), device_ms(kernel)),
+                 "plain": (time_ms(plain, iters=5), device_ms(plain, iters=5)),
+                 "grid_sample": (time_ms(lib), device_ms(lib))}
+            touched = touched_rows(coords, h, w)
+            esize = planes.element_size()
+            nbytes = coords.numel() * 4 + touched * c * esize + n * 3 * m * c * 4
+            b_ms, b_by = bound_ms(nbytes, n * m * 3 * (7 * c + 20))
+            device_sets[label] = t["kernel"][1]
+            log(f"{name} {label} ({n}, 3, {m}, {c}) {dtype}: bitwise equal to the plain version "
+                f"{equal} (max abs err {err:.3e}; F.grid_sample within {lib_diff:.3e}); "
+                + ", ".join(f"{k} {a:.4f} ms back-to-back, {d:.4f} ms device-only"
+                            for k, (a, d) in t.items())
+                + f"; bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB: {touched} corner rows "
+                f"of {n * 3 * h * w}); device-only at {100 * b_ms / t['kernel'][1]:.0f}% of it")
+            check(equal, f"{name} differs from its plain version at {label}")
+            # float32 only: grid_sample's weights round apart by an ulp or so;
+            # its bfloat16 form rounds the grid to bf16, another function.
+            check(dtype == torch.bfloat16 or lib_diff <= TOL_SPLAT * float(tables.abs().max()),
+                  f"{name} and F.grid_sample disagree at {label}: {lib_diff:.3e}")
+            if row is None:  # the table's row: the coarse pass
+                host = enqueue_us(kernel)
+                log(f"{name} coarse: host {host:.1f} us a call")
+                row = {"ms": t["kernel"][0], "device_ms": t["kernel"][1], "host_us": host,
+                       "plain_ms": t["plain"][0], "plain_device_ms": t["plain"][1],
+                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["grid_sample"][0],
+                       "library_device_ms": t["grid_sample"][1]}
+            del view, grid
+        rows.append({"name": name, "route": "cuda", "source": "spi_tpu_torch/csrc/plane_sample.cu",
+                     "replaces": "tools/profile_gather.py:111",
+                     "xla_composition": "spi_tpu/models/rendering/renderer.py:104",
+                     "max_abs_err": worst, **row, "device_ms_sets": device_sets})
+        del all_planes
+    return rows
 
 
 def phase_bias_act(dev):
@@ -1129,13 +1269,17 @@ def drive(label, kernels, fn):
     with the set-up's), each step's s after the first, median s/step after
     the second)."""
     from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.ops import plane_splat as ps
     from spi_tpu_torch.tools.step_time import steady_s, time_steps
 
     counts = []
+    copies = dict(ps.contiguous_copies)
     _lib.reset_launch_counts()
     result, first_s, step_s, peak = time_steps(
         fn, lambda: counts.append(dict(_lib.launch_counts)))
     launches = dict(_lib.launch_counts)
+    log(f"{label}: strided inputs the lookup copied: "
+        f"{ {k: v - copies[k] for k, v in ps.contiguous_copies.items()} }")
     steady = steady_s(step_s)
     steps = [{k: c[k] - (counts[i - 1][k] if i else 0) for k in launches}
              for i, c in enumerate(counts)]
@@ -1182,9 +1326,10 @@ def phase_project(dev, model, dtype="float32"):
     from spi_tpu_torch.tools.step_time import PIVOT_STEPS, projection
 
     label = "sg project" + tag(dtype)
-    (w, noise, dists), launches, _, _, steady = drive(
+    (w, noise, dists), launches, steps, _, steady = drive(
         label, PATH_KERNELS[dtype], projection(model, "sg", PIVOT_STEPS, dev))
     check_projection(model[0], label, w, noise, dists)
+    check_lookups(label, steps[-1], dtype, 2)
     return (w, noise), launches, steady
 
 
@@ -1195,7 +1340,8 @@ def phase_project(dev, model, dtype="float32"):
 CONV_OR_MATMUL = ("conv", "implicit", "wgrad", "dgrad", "gemm", "gemv", "xmma", "cutlass", "fft")
 TENSOR_CORE = ("bf16", "f16", "tf32", "s16816", "s1688", "hmma", "gmma", "tensorop", "wmma")
 KINDS = (
-    ("plane_splat", "splat kernel"), ("bias_act", "bias_act kernels"),
+    ("plane_splat", "splat kernel"), ("plane_sample", "plane sample kernel"),
+    ("bias_act", "bias_act kernels"),
     ("softmax", "softmax (CLIP attention)"), ("layer_norm", "layer norm (CLIP)"),
     ("fft", "convolution (FFT)"), ("float2", "convolution (FFT)"),
     ("conv", "convolution"), ("implicit", "convolution"), ("wgrad", "convolution"),
@@ -1205,25 +1351,6 @@ KINDS = (
     ("elementwise", "elementwise"), ("vectorized", "elementwise"), ("memset", "memset/copy"),
     ("memcpy", "memset/copy"), ("copy", "memset/copy"),
 )
-
-
-def device_kernels(prof):
-    """{kernel name: (device ms, launches)} of a torch.profiler run: the
-    events on the card with device time, less user annotations and the
-    profiler's own step markers. Fails where there is none."""
-    import torch
-
-    per_kernel = {}
-    for evt in prof.key_averages():
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = getattr(evt, "self_cuda_time_total", 0.0)
-        if (t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(evt, "is_user_annotation", False)
-                and "#" not in evt.key and not evt.key.startswith("ProfilerStep")):
-            per_kernel[evt.key] = (t / 1e3, evt.count)
-    check(per_kernel, "the profiler saw no device time")
-    return per_kernel
 
 
 def profile_step(label, fn, wait, steady_s, of_what):
@@ -1243,7 +1370,7 @@ def profile_step(label, fn, wait, steady_s, of_what):
     for name, (t, _) in per_kernel.items():
         low = name.lower()
         kind = next((k for frag, k in KINDS if frag in low), "other")
-        if (kind not in ("splat kernel", "bias_act kernels")
+        if (kind not in ("splat kernel", "plane sample kernel", "bias_act kernels")
                 and any(f in low for f in CONV_OR_MATMUL) and any(f in low for f in TENSOR_CORE)):
             kind = "convolution/matmul on tensor cores"
         kinds[kind] = kinds.get(kind, 0.0) + t
@@ -1256,6 +1383,11 @@ def profile_step(label, fn, wait, steady_s, of_what):
         log(f"profile kernel {t:10.3f} ms {n:6d}x  {name[:110]}")
     log(f"profile: device busy {100 * total / (steady_s * 1e3):.1f}% of a {label} (device time "
         f"over {of_what} {steady_s * 1e3:.3f} ms)")
+    # The kernel PyTorch's index_select ran the triplane lookup on before
+    # its own kernel; what of it remains on a path.
+    gather = [(t, n) for name, (t, n) in per_kernel.items() if "vectorized_gather_kernel" in name]
+    log(f"profile: vectorized_gather_kernel {sum(t for t, _ in gather):.3f} ms in "
+        f"{sum(n for _, n in gather)} launches of a {label}")
     return kinds, total
 
 
@@ -1286,6 +1418,7 @@ def phase_mir(dev, model, num_steps=4, dtype="float32"):
     check_projection(model[0], label, w, noise, dists)
     check(per_step["plane_splat"] == 2,
           f"mir: {per_step['plane_splat']} splat launches a step, not one per render pass")
+    check_lookups(label, per_step, dtype, 2)
     return steady
 
 
@@ -1311,6 +1444,7 @@ def phase_tune(dev, model, pivot, num_steps=6, dtype="float32"):
         f"{moved} of {len(after)} weight tensors moved")
     check(steps == num_steps and math.isfinite(last_lpips), "stage 2 stopped early or diverged")
     check(finite and moved > 0, "the tuned weights are not finite or did not move")
+    check_lookups(label, per_step, dtype, 2)
     return steady, per_step
 
 
@@ -1321,7 +1455,9 @@ def phase_rotbbox(dev, model, pivot, num_steps=9, dtype="float32"):
     carry the regularizers; 4 and 8 are timed apart from the
     reconstruction-only steps after the first. A regularizer step's
     backward splats 8 passes (recon, rot, mirror and the tuned depth
-    render, coarse and fine), a reconstruction step's 2."""
+    render, coarse and fine), a reconstruction step's 2; the lookup runs
+    in 10 passes and 2 (the original generator's depth render, two passes
+    under no_grad, has no backward)."""
     import statistics
 
     import torch
@@ -1358,9 +1494,11 @@ def phase_rotbbox(dev, model, pivot, num_steps=9, dtype="float32"):
     for k in reg:
         check(step_launches[k]["plane_splat"] == 8,
               f"rotbbox step {k}: {step_launches[k]['plane_splat']} splat launches, not 8")
+        check_lookups(f"rotbbox step {k}", step_launches[k], dtype, 10)
     for k in rec:
         check(step_launches[k]["plane_splat"] == 2,
               f"rotbbox step {k}: {step_launches[k]['plane_splat']} splat launches, not 2")
+        check_lookups(f"rotbbox step {k}", step_launches[k], dtype, 2)
     reg_median, rec_median = statistics.median_high(reg_s), statistics.median_high(rec_s)
     profile_step(f"RotBbox{tag(dtype)} regularizer step", rotbbox(model, pivot, 5, dev), 3,
                  reg_median, "this phase's median regularizer step time")
@@ -1619,7 +1757,7 @@ def phase_user_path(dev, data, first_steps=3, tune_steps=5):
         f"({8 / res['render_s']:.2f} frames/s) -> {res['video']}; shape 128^3: density probes "
         f"{res['probe_s']:.3f} s, marching tetrahedra and PLY {res['mesh_s']:.3f} s, "
         f"{len(res['verts'])} vertices, {len(res['faces'])} faces; launches {launches}")
-    for k in ("bias_act_fwd", "bias_act_fwd_bf16"):
+    for k in ("bias_act_fwd", "bias_act_fwd_bf16", "plane_sample_bf16"):
         check(launches[k] > 0, f"kernel {k} was never launched by run_video")
     check(res["frames"].shape == (8, 512, 512, 3) and os.path.exists(res["video"]),
           f"run_video frames {res['frames'].shape}, video {res['video']}")
@@ -1648,6 +1786,7 @@ def phase_user_path(dev, data, first_steps=3, tune_steps=5):
         net = {k: v - counts["planes"].get(k, 0) for k, v in counts[label].items()}
         log(f"launches of one {label} ({what}), net of the planes' pass "
             f"{counts['planes']}: {net}")
+        check(net.get("plane_sample_bf16", 0) > 0, f"one {label} launched no bf16 lookup")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     render_orbit_images(g, w, num_frames=16)
@@ -1778,6 +1917,7 @@ def phase_vmap_kernels(dev):
         grids = ps.project_onto_planes(x * 2.0).reshape(n * 3, x.shape[1], 2)
         return sample_flat(pl.reshape(n * 3, hw, ch), grids, h, w).reshape(n, 3, -1, ch)
 
+    copies = dict(ps.contiguous_copies)
     _lib.reset_launch_counts()
     out = vmap_strict(lambda pl, x: ps.sample_planes(pl, x, 1.0, geom))(planes, coords)
     (grad,) = torch.autograd.grad(out, planes, cot)
@@ -1786,17 +1926,37 @@ def phase_vmap_kernels(dev):
     check(launches["plane_splat"] == 1, f"vmapped splat: {launches['plane_splat']} launches")
     out_p = vmap_strict(plain_sample)(planes, coords)
     (grad_p,) = torch.autograd.grad(out_p, planes, cot)
-    errs = {"plain": rel_err(grad, grad_p), "forward": rel_err(out.detach(), out_p.detach())}
+    errs = {"plain": rel_err(grad, grad_p)}
     loop = torch.stack([ps.splat_cuda(coords[i].contiguous(), cot[i].contiguous(), 1.0, h, w,
                                       geom) for i in range(b)])
     errs["loop"] = rel_err(grad, loop)
-    del out, out_p, grad_p, loop
     log(f"vmap splat, {b} coarse passes (1, 3, {p}, {c}) each: one launch; gradient against "
         f"the plain gather's autograd {errs['plain']:.3e}, against a loop of the kernel "
-        f"{errs['loop']:.3e}, forward against the plain gather {errs['forward']:.3e} "
-        f"(tol {TOL_SPLAT})")
+        f"{errs['loop']:.3e} (tol {TOL_SPLAT})")
     check(max(errs.values()) <= TOL_SPLAT, f"vmapped splat disagrees: {errs}")
-    del grad, planes, cot, coords
+    # The lookup in the same call, and in bfloat16 planes: one launch for
+    # the batch, bitwise equal to a loop of unbatched kernel calls and to
+    # the plain gather under the same vmap.
+    forward = {"float32": (out.detach(), out_p.detach(), launches["plane_sample"])}
+    del out, out_p, grad_p, loop
+    pb = planes.detach().bfloat16()
+    _lib.reset_launch_counts()
+    out_b = vmap_strict(lambda pl, x: ps.sample_planes(pl, x, 1.0, geom))(pb, coords)
+    torch.cuda.synchronize()
+    forward["bfloat16"] = (out_b, vmap_strict(plain_sample)(pb, coords),
+                           _lib.launch_counts["plane_sample_bf16"])
+    for dtype, (got, plain, n_launch) in forward.items():
+        src = planes.detach() if dtype == "float32" else pb
+        loop = torch.stack([ps.sample_planes_cuda(src[i], coords[i].contiguous(), 1.0)
+                            for i in range(b)])
+        equal = (torch.equal(got, loop), torch.equal(got, plain))
+        log(f"vmap lookup {dtype}, {b} coarse passes: {n_launch} launch(es); bitwise equal to a "
+            f"loop of the kernel {equal[0]}, to the plain gather under vmap {equal[1]}")
+        check(n_launch == 1 and all(equal), f"vmapped lookup {dtype} disagrees or relaunched")
+        del loop, src
+    check(ps.contiguous_copies == copies,
+          f"the vmapped lookup copied strided inputs: {ps.contiguous_copies} (was {copies})")
+    del grad, planes, cot, coords, forward, out_b, pb
 
     spec = ba.activation_funcs["lrelu"]
     clamp = 256.0 * spec.def_gain
@@ -2479,8 +2639,8 @@ def phase_bias_act_grad2(dev):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "library_device_ms": None}
 
 
-GAN_KERNELS = ("plane_splat", "bias_act_fwd", "bias_act_bwd", "bias_act_fwd_bf16",
-               "bias_act_bwd_bf16")  # D in float32, G in bfloat16
+GAN_KERNELS = ("plane_splat", "plane_sample_bf16", "bias_act_fwd", "bias_act_bwd",
+               "bias_act_fwd_bf16", "bias_act_bwd_bf16")  # D in float32, G in bfloat16
 TINY_GAN_P = 0.5
 
 
@@ -2621,8 +2781,9 @@ def gan_steps(tr, real, c, counts, on_step=None):
 
 class KernelInputs:
     """While entered, records the arguments of the largest call (by
-    elements) of each kernel wrapper on the GAN path, as copies: the splat,
-    the bias_act forward and backward in float32 and bfloat16, and the
+    elements; the lookup's by points) of each kernel wrapper on the GAN
+    path, as copies: the splat, the lookup (in its planes' dtype), the
+    bias_act forward and backward in float32 and bfloat16, and the
     float32 backward launched as the backward of the backward (R1's second
     order, inside `_BiasActCudaGrad.backward`)."""
 
@@ -2640,14 +2801,16 @@ class KernelInputs:
         self.saved = [(ba, "bias_act_fwd_cuda", ba.bias_act_fwd_cuda),
                       (ba, "bias_act_bwd_cuda", ba.bias_act_bwd_cuda),
                       (ps, "splat_cuda", ps.splat_cuda),
+                      (ps, "sample_planes_cuda", ps.sample_planes_cuda),
                       (ba._BiasActCudaGrad, "backward", ba._BiasActCudaGrad.__dict__["backward"])]
         self.originals = {name: fn for _, name, fn in self.saved}
 
         def recorder(name, fn, first):
             def call(*args):
                 key = name
-                if name != "plane_splat":
-                    key += "" if args[first].dtype == torch.float32 else "_bf16"
+                if name != "plane_splat":  # the lookup's dtype is its planes'
+                    dt = args[0].dtype if name == "plane_sample" else args[first].dtype
+                    key += "" if dt == torch.float32 else "_bf16"
                     if name == "bias_act_bwd" and self.second_order:
                         key += " (R1 second order)"
                 n = args[first].numel()
@@ -2669,6 +2832,7 @@ class KernelInputs:
         ba.bias_act_fwd_cuda = recorder("bias_act_fwd", ba.bias_act_fwd_cuda, 0)
         ba.bias_act_bwd_cuda = recorder("bias_act_bwd", ba.bias_act_bwd_cuda, 1)
         ps.splat_cuda = recorder("plane_splat", ps.splat_cuda, 1)
+        ps.sample_planes_cuda = recorder("plane_sample", ps.sample_planes_cuda, 1)
         ba._BiasActCudaGrad.backward = staticmethod(tagged_backward)
         return self
 
@@ -2681,7 +2845,7 @@ class KernelInputs:
 def check_kernel_inputs(calls, originals, label):
     """Each recorded call (KernelInputs) again through its kernel, against
     its plain version on the same inputs: the splat within TOL_SPLAT of the
-    largest entry; bias_act in float32 within TOL_ELEMWISE (absolute +
+    largest entry; the lookup bitwise; bias_act in float32 within TOL_ELEMWISE (absolute +
     relative), in bfloat16 bitwise for linear and lrelu and within
     TOL_BF16_ULP for the others (TOL_SATURATED_DX for the saturating
     activations' dx), as phase 2 holds them. Where act(x + b) * gain lies
@@ -2708,6 +2872,15 @@ def check_kernel_inputs(calls, originals, label):
             log(f"{label} kernel inputs: splat {tuple(g.shape)} ({coords.shape[0] * coords.shape[1]} "
                 f"points), {geom}: max abs err {worst[key]:.3e}, rel {err:.3e} (tol {TOL_SPLAT})")
             check(err <= TOL_SPLAT, f"splat disagrees at the {label}'s shape {tuple(g.shape)}")
+            continue
+        if key.startswith("plane_sample"):
+            planes, coords, box_warp = args
+            got = originals["sample_planes_cuda"](*args)
+            want = ps.sample_planes_plain(planes, coords, box_warp)
+            worst[key] = float((got - want).abs().max())
+            log(f"{label} kernel inputs: {key} {tuple(planes.shape)} {planes.dtype} at "
+                f"{coords.shape[0] * coords.shape[1]} points: bitwise equal {torch.equal(got, want)}")
+            check(torch.equal(got, want), f"{key} differs at the {label}'s shape {tuple(coords.shape)}")
             continue
         fwd = key.startswith("bias_act_fwd")
         g, (x, b, dim, act_id, alpha, gain, clamp) = (None, args) if fwd else (args[0], args[1:])
@@ -2801,6 +2974,10 @@ def phase_gan(dev):
     check(steps[0][1]["bias_act_bwd"] > steps[1][1]["bias_act_bwd"],
           "the R1 step launched no more float32 backward kernels than a plain step")
     log(f"GAN launches a step: plain {steps[1][1]}; R1 + TV {steps[6][1]}; TV {steps[4][1]}")
+    # Two renders a step (D's fakes under no_grad, G's), two passes each;
+    # density TV samples two point sets more.
+    for i, kind, n in ((1, "plain", 4), (4, "density TV", 6), (6, "R1 + density TV", 6)):
+        check_lookups(f"GAN {kind} step", steps[i][1], "bfloat16", n)
     moved = {}
     for w, mod in (("g", tr.generator), ("d", tr.discriminator)):
         still = [k for k, p in mod.named_parameters() if torch.equal(p.detach(), start[w][k])]
@@ -2836,8 +3013,8 @@ def phase_gan(dev):
     # largest call.
     with KernelInputs() as rec:
         gan_steps(tr, real, c, [64])
-    want = {"plane_splat", "bias_act_fwd", "bias_act_bwd", "bias_act_bwd (R1 second order)",
-            "bias_act_fwd_bf16", "bias_act_bwd_bf16"}
+    want = {"plane_splat", "plane_sample_bf16", "bias_act_fwd", "bias_act_bwd",
+            "bias_act_bwd (R1 second order)", "bias_act_fwd_bf16", "bias_act_bwd_bf16"}
     check(want <= set(rec.calls), f"the GAN step made no call to {sorted(want - set(rec.calls))}")
     del tr
     torch.cuda.empty_cache()
@@ -3405,7 +3582,8 @@ def main(argv=None) -> int:
     model = build_model(dev)
     models = {"float32": model, "bfloat16": build_model(dev, "bfloat16")}
     kernels = phase(2, "kernels vs plain", lambda: [
-        phase_splat(dev, model, args.parent), *phase_bias_act(dev), phase_bias_act_grad2(dev),
+        phase_splat(dev, model, args.parent), *phase_plane_sample(dev, model),
+        *phase_bias_act(dev), phase_bias_act_grad2(dev),
         *phase_bias_act_bf16(dev),
         phase_win_scatter(dev, args.parent),
         phase_row_gather(dev), phase_row_scatter_add(dev)])
@@ -3467,6 +3645,9 @@ def main(argv=None) -> int:
             f"regularizer steps {r['rotbbox'][0]:.5f}, reconstruction steps {r['rotbbox'][1]:.5f}")
     log(f"editing (float32, batch 2, ViT-B/32 + ViT-B/16): median s/step after the second "
         f"{edit_s:.5f}")
+    from spi_tpu_torch.ops.plane_splat import contiguous_copies
+
+    log(f"strided inputs the lookup copied in the whole run: {contiguous_copies}")
     log("GAN training (full width, bfloat16 G, float32 D): seconds a step " + ", ".join(
         f"{k} {v:.5f}" for k, v in gan_s.items()))
     for k in kernels:  # launches on the inversion ('sg') path of the kernel's dtype

@@ -11,12 +11,10 @@
 // fully outside adds nothing.
 //
 // Plane coordinates are recomputed here from the stored world-space
-// points, exactly as the forward gather computes them: scale by
-// 2 / box_warp, pick the plane axes of `project_onto_planes` (plane 0
-// reads (x, y), plane 1 (x, z), plane 2 (z, x)), then map to texels with
-// f = ((u + 1) * size - 1) / 2. The arithmetic is written with _rn
-// intrinsics so that nvcc does not contract it into FMAs and the corner
-// weights round as the PyTorch forward's do.
+// points by the forward's own texel math (plane_texels.cuh, which
+// plane_sample.cu includes too): scale by 2 / box_warp, pick the plane
+// axes of `project_onto_planes`, map to texels with align_corners=False,
+// with _rn intrinsics so that the corner weights round as the forward's do.
 //
 // What bounds it on an H100: bytes, as counted by the roofline (each
 // cotangent read once, the coordinates read once, the tables written
@@ -66,6 +64,8 @@
 
 #include <cub/block/block_scan.cuh>
 #include <cuda_runtime.h>
+
+#include "plane_texels.cuh"
 
 namespace {
 
@@ -171,8 +171,8 @@ plane_splat_kernel(const float* __restrict__ coords, const float* __restrict__ g
     sm.rows[l] = rows[k];
     if (rows[k] >= 0) {
       const float* p = coords + ((size_t)table * geo.m + rows[k]) * 3;
-      pu[k] = __ldg(p + (plane == 2 ? 2 : 0));
-      pv[k] = __ldg(p + (plane == 0 ? 1 : (plane == 1 ? 2 : 0)));
+      pu[k] = __ldg(p + plane_texels::axis_u(plane));
+      pv[k] = __ldg(p + plane_texels::axis_v(plane));
     }
   }
 #pragma unroll
@@ -196,24 +196,11 @@ plane_splat_kernel(const float* __restrict__ coords, const float* __restrict__ g
 #pragma unroll
     for (int q = 0; q < 4; ++q) slot[k * 4 + q] = -1;
     if (rows[k] < 0) continue;
-    const float u = __fmul_rn(pu[k], scale);
-    const float v = __fmul_rn(pv[k], scale);
-    const float fx = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(u, 1.0f), (float)w), 1.0f), 0.5f);
-    const float fy = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(v, 1.0f), (float)h), 1.0f), 0.5f);
-    const float x0f = floorf(fx);
-    const float y0f = floorf(fy);
-    const float tx = __fsub_rn(fx, x0f);
-    const float ty = __fsub_rn(fy, y0f);
-    const int x0 = (int)x0f;
-    const int y0 = (int)y0f;
-    const float corner_wt[4] = {__fmul_rn(1.0f - tx, 1.0f - ty), __fmul_rn(tx, 1.0f - ty),
-                                __fmul_rn(1.0f - tx, ty), __fmul_rn(tx, ty)};
+    const plane_texels::Corners corner = plane_texels::corners(pu[k], pv[k], scale, h, w);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int xi = x0 + (q & 1);
-      const int yi = y0 + (q >> 1);
-      if (xi < 0 || xi >= w || yi < 0 || yi >= h) continue;
-      const int texel = yi * w + xi;
+      if (!plane_texels::in_plane(corner, q, h, w)) continue;
+      const int texel = plane_texels::texel(corner, q, w);
       unsigned s = ((unsigned)texel * 2654435761u) >> (32 - Cfg::kSlotBits);
       for (;;) {
         const int held = atomicCAS(&sm.slot_texel[s], -1, texel);
@@ -222,7 +209,7 @@ plane_splat_kernel(const float* __restrict__ coords, const float* __restrict__ g
       }
       slot[k * 4 + q] = (int)s;
       rank[k * 4 + q] = atomicAdd(&sm.slot_count[s], 1);
-      wt[k * 4 + q] = corner_wt[q];
+      wt[k * 4 + q] = corner.wt[q];
     }
   }
   __syncthreads();

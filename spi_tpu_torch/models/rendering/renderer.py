@@ -2,7 +2,8 @@
 spi_tpu/models/rendering/renderer.py; spec EG3D renderer.py).
 
 Every pass samples the planes through `ops.sample_planes`, whose
-backward is the splat kernel: coarse, fine and multi-camera alike.
+forward is the lookup kernel and whose backward is the splat kernel:
+coarse, fine and multi-camera alike.
 The coarse and fine samples are composited by sorting their union
 (`march_rays_merge`), and the importance inverse CDF brackets with
 `searchsorted`; spi_tpu's sortless rank merge and masked reductions

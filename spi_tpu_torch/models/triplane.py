@@ -183,8 +183,11 @@ class TriPlaneGenerator(nn.Module):
 
     def planes_nhwc(self, ws, noise_mode="const", noise=None, generator=None):
         """ws (N, num_ws, w_dim) -> planes (N, 3, H*W, plane_channels), in
-        the compute dtype. Under noise_mode='random' the noise maps are
-        `noise` (as `draw_noise` gives), else drawn from `generator`."""
+        the compute dtype, contiguous: channels-last in memory, as the
+        lookup kernel reads them (the reshape alone is a channels-first
+        view, which each lookup pass would copy). Under noise_mode='random'
+        the noise maps are `noise` (as `draw_noise` gives), else drawn from
+        `generator`."""
         dt = self.compute_dtype
         if noise_mode == "random" and noise is None:
             noise = self.draw_noise(ws.shape[0], generator)
@@ -194,7 +197,8 @@ class TriPlaneGenerator(nn.Module):
                            noise=noise)  # (N, 96, H, W)
         n, _, h, w = planes.shape
         pc = self.cfg.plane_channels
-        return planes.reshape(n, 3, pc, h, w).permute(0, 1, 3, 4, 2).reshape(n, 3, h * w, pc)
+        return (planes.reshape(n, 3, pc, h, w).permute(0, 1, 3, 4, 2).reshape(n, 3, h * w, pc)
+                .contiguous())
 
     def synthesis(self, ws, c, neural_rendering_resolution=None, noise_mode="const",
                   draws: dict | None = None, generator=None):

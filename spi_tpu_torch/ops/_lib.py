@@ -32,9 +32,9 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 ]
 
-KERNELS = ("plane_splat", "bias_act_fwd", "bias_act_bwd", "bias_act_grad2",
-           "bias_act_fwd_bf16", "bias_act_bwd_bf16", "win_scatter", "row_gather",
-           "row_scatter_add")
+KERNELS = ("plane_splat", "plane_sample", "plane_sample_bf16", "bias_act_fwd", "bias_act_bwd",
+           "bias_act_grad2", "bias_act_fwd_bf16", "bias_act_bwd_bf16", "win_scatter",
+           "row_gather", "row_scatter_add")
 launch_counts: dict[str, int] = {k: 0 for k in KERNELS}
 
 _P = ctypes.c_void_p
@@ -43,6 +43,8 @@ _F = ctypes.c_float
 # C signatures: every function returns cudaGetLastError() after its launch.
 _SIGNATURES = {
     "spi_plane_splat": [_P, _P, _P, *[_I] * 11, _F, _P],
+    "spi_plane_sample": [_P, _P, _P, *[_I] * 5, _F, _P],
+    "spi_plane_sample_bf16": [_P, _P, _P, *[_I] * 5, _F, _P],
     "spi_bias_act_fwd": [_P, _P, _P, *[_I] * 5, _F, _F, _F, _P],
     "spi_bias_act_bwd": [_P, _P, _P, _P, *[_I] * 5, _F, _F, _F, _P],
     "spi_bias_act_grad2": [_P, _P, _P, _P, _P, *[_I] * 5, _F, _F, _F, _P],

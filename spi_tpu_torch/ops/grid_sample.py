@@ -3,9 +3,10 @@ spi_tpu/ops/grid_sample.py).
 
 Zeros padding, align_corners=False: four corner gathers from a flat
 (rows, C) table, with out-of-range corners weighted to zero. This is
-the forward of the triplane lookup, whose backward is the splat kernel
-(ops/plane_splat.py), and, as `grid_sample`, the sampler of the depth
-warp (utils/rotate.py). spi_tpu runs both as XLA compositions, with no
+the plain version of the triplane lookup (ops/plane_splat.py, whose
+kernel follows its order of operations) and, as `grid_sample`, the
+sampler of the depth warp (utils/rotate.py) and of the ADA pipe
+(training/augment.py). spi_tpu runs both as XLA compositions, with no
 TPU kernel behind them.
 """
 

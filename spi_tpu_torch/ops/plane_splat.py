@@ -1,17 +1,22 @@
-"""Triplane sampling with a splat-kernel backward (counterpart of
-spi_tpu/ops/plane_splat.py and renderer._sample_planes_windowed).
+"""Triplane sampling: a lookup kernel forward and a splat-kernel backward
+(counterpart of spi_tpu/ops/plane_splat.py and
+renderer._sample_planes_windowed).
 
 `sample_planes` is an autograd Function around the triplane lookup. Its
-forward is the plain 4-corner gather (ops/grid_sample.py). Its backward
-is the splat: each point's cotangent added with bilinear weights into
-the three plane-gradient tables. On a CUDA tensor the backward launches
-the kernel of `csrc/plane_splat.cu`; on a CPU tensor it runs
-`splat_plain`, four `index_add_` calls. There is no switch and no
-fallback between the two.
+forward is the 3-plane bilinear sample: on a CUDA tensor the kernel of
+`csrc/plane_sample.cu` (float32 or bfloat16 planes, float32 features), on
+a CPU tensor `sample_planes_plain`, the 4-corner gather of
+ops/grid_sample.py. Its backward is the splat: each point's cotangent
+added with bilinear weights into the three plane-gradient tables, on a
+CUDA tensor by the kernel of `csrc/plane_splat.cu`, on a CPU tensor by
+`splat_plain`, four `index_add_` calls. Both kernels share their texel
+math (`csrc/plane_texels.cuh`). There is no switch and no fallback: a
+CUDA input that a kernel does not take raises.
 
-The TPU version tiled points by ray, reduced each tile into a VMEM
+spi_tpu ran the forward as an XLA composition and the backward as a
+Pallas kernel that tiled points by ray, reduced each tile into a VMEM
 window on the MXU and fell back to an XLA scatter when a window
-overflowed. The CUDA kernel also works per ray tile, but groups each
+overflowed. The CUDA splat also works per ray tile, but groups each
 tile's corners by texel and issues one global reduction per distinct
 texel, so it is exact for any point layout: every render pass (coarse, fine,
 multi-camera) uses it, with no window and no overflow fallback. The ray
@@ -22,8 +27,10 @@ per-tile reduction in plain PyTorch, for the CPU tests and for counting
 the reductions a pass issues.
 
 Under torch.func.vmap (several images a step) the Function's vmap rule
-folds the image axis into the tables, so the gather and the splat each
-launch once for the batch.
+folds the image axis into the tables, so the lookup and the splat each
+launch once for the batch. The lookup takes its inputs contiguous; where
+a caller hands it strided ones, the forward copies them and counts the
+copy in `contiguous_copies`.
 
 The coordinates get no gradient: `sample_planes` raises if they need
 one, rather than returning a silent zero as spi_tpu's windowed path did
@@ -214,19 +221,85 @@ def splat_cuda(coordinates, g, box_warp: float, h: int, w: int, geom: RayGeom | 
     return out
 
 
+def sample_planes_plain(planes, coordinates, box_warp: float):
+    """The plain PyTorch version of the lookup: (N, 3, H*W, C) planes at
+    (N, M, 3) world points -> (N, 3, M, C), by the 4-corner gather of
+    `sample_flat` (float32 features from bfloat16 planes)."""
+    n, _, hw, c = planes.shape
+    h = w = math.isqrt(hw)
+    m = coordinates.shape[1]
+    grids = project_onto_planes(coordinates * (2.0 / box_warp))
+    out = sample_flat(planes.reshape(n * 3, hw, c), grids.reshape(n * 3, m, 2), h, w)
+    return out.reshape(n, 3, m, c)
+
+
+# The lookup kernel's form for each planes dtype, and the channels that
+# one thread of it reads from a corner row (16 bytes).
+SAMPLE_KERNELS = {torch.float32: ("plane_sample", 4), torch.bfloat16: ("plane_sample_bf16", 8)}
+
+
+def sample_planes_cuda(planes, coordinates, box_warp: float):
+    """Launch the lookup kernel: the same function as `sample_planes_plain`,
+    bitwise.
+
+    planes: (N, 3, H*W, C) float32 with C a multiple of 4, or bfloat16 with
+    C a multiple of 8, H = W; coordinates: (N, M, 3) float32; both
+    contiguous on one CUDA device. Returns (N, 3, M, C) float32.
+    """
+    if planes.dtype not in SAMPLE_KERNELS:
+        raise ValueError(f"lookup kernel takes float32 or bfloat16 planes, got {planes.dtype}")
+    name, per_thread = SAMPLE_KERNELS[planes.dtype]
+    if planes.ndim != 4 or coordinates.ndim != 3:
+        raise ValueError(f"shapes do not match: planes {tuple(planes.shape)}, "
+                         f"coordinates {tuple(coordinates.shape)}")
+    n, n_planes, hw, c = planes.shape
+    h = math.isqrt(hw)
+    m = coordinates.shape[1]
+    if n_planes != 3 or h * h != hw or tuple(coordinates.shape) != (n, m, 3):
+        raise ValueError(f"shapes do not match: planes {tuple(planes.shape)}, "
+                         f"coordinates {tuple(coordinates.shape)}")
+    if c % per_thread:
+        raise ValueError(f"lookup kernel takes C a multiple of {per_thread} for "
+                         f"{planes.dtype} planes, got {c}")
+    if n * 3 * m * c >= 2**31 or n * 3 * hw * c >= 2**31:
+        raise ValueError("lookup kernel takes fewer than 2^31 output and plane entries")
+    _lib.require(planes, "planes", dtype=planes.dtype, align=16)
+    _lib.require(coordinates, "coordinates", device=planes.device)
+    out = torch.empty(n, 3, m, c, dtype=torch.float32, device=planes.device)
+    err = getattr(_lib.lib(), "spi_" + name)(
+        planes.data_ptr(), coordinates.data_ptr(), out.data_ptr(), n, m, h, h, c,
+        2.0 / box_warp, _lib.stream_handle(planes.device),
+    )
+    _lib.check(err, name)
+    _lib.launch_counts[name] += 1
+    return out
+
+
+# Copies the forward made of strided inputs before the lookup kernel
+# (by argument); the render passes hand it contiguous ones.
+contiguous_copies = {"planes": 0, "coordinates": 0}
+
+
+def _contiguous(t, name):
+    if t.is_contiguous():
+        return t
+    contiguous_copies[name] += 1
+    return t.contiguous()
+
+
 class _SamplePlanes(torch.autograd.Function):
     @staticmethod
     def forward(planes, coordinates, box_warp, geom):
-        n, n_planes, hw, c = planes.shape
+        n, n_planes, hw, _ = planes.shape
         h = w = math.isqrt(hw)
         if n_planes != 3 or h * w != hw or coordinates.shape[0] != n:
             raise ValueError(f"planes {tuple(planes.shape)} / coordinates "
                              f"{tuple(coordinates.shape)} do not match")
-        m = coordinates.shape[1]
-        kernel_tiling(geom, n, m)  # raises on a geometry that does not fit the points
-        grids = project_onto_planes(coordinates * (2.0 / box_warp))
-        out = sample_flat(planes.reshape(n * 3, hw, c), grids.reshape(n * 3, m, 2), h, w)
-        return out.reshape(n, 3, m, c)
+        kernel_tiling(geom, n, coordinates.shape[1])  # raises on a geometry that does not fit
+        if planes.is_cuda:
+            return sample_planes_cuda(_contiguous(planes, "planes"),
+                                      _contiguous(coordinates, "coordinates"), box_warp)
+        return sample_planes_plain(planes, coordinates, box_warp)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -254,7 +327,7 @@ class _SamplePlanes(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, planes, coordinates, box_warp, geom):
         """Under torch.func.vmap: B images' (N, 3, H*W, C) planes and (N, M, 3)
-        points fold into B * N tables of one call, so the forward gather and
+        points fold into B * N tables of one call, so the forward lookup and
         the backward splat launch once for the whole batch. The ray geometry
         counts B times the views; a side that is not batched is expanded."""
         b = info.batch_size
@@ -279,6 +352,7 @@ def _batch_first(x, dim, b):
 
 def sample_planes(planes, coordinates, box_warp: float, geom: RayGeom | None = None):
     """Bilinear-sample (N, 3, H*W, C) channels-last planes at (N, M, 3)
-    world points -> (N, 3, M, C). The backward is the splat; `geom`, the
-    ray geometry of the N * M points, only decides the kernel's tiles."""
+    world points -> (N, 3, M, C) float32 (float64 for float64 inputs on the
+    CPU). The forward is the lookup kernel, the backward the splat; `geom`,
+    the ray geometry of the N * M points, only decides the splat's tiles."""
     return _SamplePlanes.apply(planes, coordinates, box_warp, geom)

@@ -1,7 +1,7 @@
 """Wall-clock seconds per inversion step at ffhq512_128_config width on the card.
 
     python -m spi_tpu_torch.tools.step_time [--mode sg|sgw+|mir|tune|rotbbox] [--steps N]
-        [--dtype float32|bfloat16]
+        [--dtype float32|bfloat16] [--profile]
     PYTHONPATH=<checkout> python spi_tpu_torch/tools/step_time.py --mode sg
 
 Builds the generator at its published widths with random seeded weights
@@ -12,7 +12,12 @@ yawed by MIR_YAW) or of stage 2 from the pivot of PIVOT_STEPS 'sg' steps
 (TF32 off): 'tune' is recon-only, 'rotbbox' SPI's RotBbox request (rot
 0.1, mirror-rot 0.05, depth 1) from the yawed camera with a synthetic
 face mask and landmarks. It prints one line: the median s/step after
-the second step, every step's time, and the peak device memory.
+the second step (for 'rotbbox' also that of its regularizer steps, 4, 8,
+...), every step's time, and the peak device memory. With --profile, a
+second line: one more step (a regularizer step for 'rotbbox') under
+torch.profiler, its device ms in all and in the triplane lookup's kernels
+(the lookup kernel, PyTorch's `vectorized_gather_kernel`, the splat), and
+its busy share of the median step.
 `chip_smoke.py` times the same workload through `build_model`,
 `projection`, `tuning`, `rotbbox` and `time_steps` (several images a
 step through `projection_batch` and `rotbbox_batch`), and
@@ -220,12 +225,49 @@ def steady_s(step_s):
     return statistics.median_high(step_s[1:])
 
 
+def device_kernels(prof):
+    """{kernel name: (device ms, launches)} of a torch.profiler run: the
+    events on the card with device time, less user annotations and the
+    profiler's own step markers. Raises where there is none."""
+    per_kernel = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = getattr(evt, "self_cuda_time_total", 0.0)
+        if (t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)
+                and "#" not in evt.key and not evt.key.startswith("ProfilerStep")):
+            per_kernel[evt.key] = (t / 1e3, evt.count)
+    if not per_kernel:
+        raise RuntimeError("the profiler saw no device time")
+    return per_kernel
+
+
+def profile_step(fn, wait):
+    """`device_kernels` of step number `wait` + 1 of the workload
+    `fn(on_step)` under torch.profiler (after `wait` steps and a warm-up
+    step)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=wait, warmup=1, active=1)) as prof:
+        fn(lambda step, value: prof.step())
+    return device_kernels(prof)
+
+
+# Kernel name fragments of the triplane lookup's forward and backward.
+LOOKUP_KERNELS = (("plane_sample", "lookup kernel"), ("vectorized_gather_kernel", "gather"),
+                  ("plane_splat", "splat"))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="sg", choices=("sg", "sgw+", "mir", "tune", "rotbbox"))
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
                     help="the generator's compute dtype")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one more step (a regularizer step for rotbbox)")
     args = ap.parse_args(argv)
 
     import spi_tpu_torch
@@ -235,14 +277,33 @@ def main(argv=None):
     model = build_model(dev, args.dtype)
     if args.mode in ("tune", "rotbbox"):
         w, noise, _ = time_steps(projection(model, "sg", PIVOT_STEPS, dev))[0]
-        fn = (tuning if args.mode == "tune" else rotbbox)(model, (w, noise), args.steps, dev)
+        stage2 = tuning if args.mode == "tune" else rotbbox
+        fn = stage2(model, (w, noise), args.steps, dev)
+        profiled, wait = stage2(model, (w, noise), 5, dev), 3  # step 4 has the regularizers
     else:
         fn = projection(model, args.mode, args.steps, dev)
+        profiled, wait = projection(model, args.mode, 3, dev, seed=9), 1
     _, _, step_s, peak = time_steps(fn)
+    median = steady_s(step_s)
+    extra = ""
+    if args.mode == "rotbbox":
+        median = statistics.median_high([step_s[k - 1] for k in range(4, args.steps, 4)])
+        extra = f", regularizer steps {median:.5f}"
     print(f"{args.mode} {args.dtype} ({spi_tpu_torch.__file__}, "
           f"{torch.cuda.get_device_name(dev)}): median "
-          f"{steady_s(step_s):.5f} s/step after the second; steps "
+          f"{steady_s(step_s):.5f} s/step after the second{extra}; steps "
           f"{[round(t, 5) for t in step_s]}; peak {peak / 2**30:.3f} GiB", flush=True)
+    if args.profile:
+        per_kernel = profile_step(profiled, wait)
+        total = sum(t for t, _ in per_kernel.values())
+        parts = []
+        for frag, what in LOOKUP_KERNELS:
+            hits = [v for k, v in per_kernel.items() if frag in k]
+            parts.append(f"{what} {sum(t for t, _ in hits):.3f} ms in {sum(n for _, n in hits)}")
+        print(f"{args.mode} {args.dtype} profiled step: device {total:.3f} ms in "
+              f"{sum(n for _, n in per_kernel.values())} launches, busy "
+              f"{100 * total / (median * 1e3):.1f}% of the median{extra and ' regularizer'} "
+              f"step; " + ", ".join(parts), flush=True)
 
 
 if __name__ == "__main__":
