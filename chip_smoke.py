@@ -13,9 +13,12 @@ Phases (any failure exits non-zero):
      pass, in float32 and bfloat16 planes; bias_act in float32 and in
      bfloat16), and time kernel, plain version and
      PyTorch library yardstick, both back-to-back and device-only
-     (tools/timing.py), beside the roofline bound; with --parent, time
-     each such checkout's splat and win_scatter kernels in turns with this
-     one on the same inputs;
+     (tools/timing.py), beside the roofline bound; row_scatter_add on
+     both its routes, with the binned route's passes profiled, at four
+     shapes and on clustered, one-row, negative, dead and empty rows; a
+     Hessian-vector product through the lookup, card against CPU; with
+     --parent, time each such checkout's splat, win_scatter and
+     row_scatter_add kernels in turns with this one on the same inputs;
   3. tiny_test_config synthesis forward and w / noise / weight gradients:
      on the card with the kernels versus on the CPU with the plain
      versions, same weights, same injected random draws, in float32 and
@@ -242,9 +245,9 @@ def check(cond, what):
 
 
 # Run by `turns` in a checkout's own directory: times that tree's kernel
-# argv[1] (plane_splat or win_scatter) device-only on the saved inputs
-# (argv[2]) with this tree's timing module (argv[3]); a tree whose
-# splat_cuda takes no geometry gets none.
+# argv[1] (plane_splat, win_scatter or row_scatter_add) device-only on the
+# saved inputs (argv[2]) with this tree's timing module (argv[3]); a tree
+# whose splat_cuda takes no geometry gets none.
 TURN_CODE = """
 import importlib.util, inspect, json, sys
 import torch
@@ -258,10 +261,14 @@ if kernel == "plane_splat":
     def call(coords, g, geom):
         extra = (mod.RayGeom(*geom),) if takes_geom and geom else ()
         return lambda: mod.splat_cuda(coords, g, 1.0, 256, 256, *extra)
-else:
+elif kernel == "win_scatter":
     from spi_tpu_torch.ops import win_scatter as mod
     def call(offsets, fyx, gft, geom):
         return lambda: mod.win_scatter_cuda(offsets, fyx, gft, *geom)
+else:
+    from spi_tpu_torch.ops import gather_scatter as mod
+    def call(rows, upd, n_out):
+        return lambda: mod.row_scatter_add_cuda(rows, upd, n_out)
 ms = {}
 for label, args in torch.load(sys.argv[2]).items():
     args = [a.cuda() if torch.is_tensor(a) else a for a in args]
@@ -304,8 +311,10 @@ def sass_atomics(path):
     """{kernel function: {atomic or reduction opcode: count}} in the SASS of
     the built library (cuobjdump -sass). Fails if any shared-memory atomic
     is a compare-and-swap loop (ATOMS.CAST.SPIN, what an f32 atomicAdd to
-    shared memory compiles to) or if a win_scatter kernel adds to global
-    memory other than by REDG."""
+    shared memory compiles to), if a win_scatter or row_scatter_add
+    kernel adds other than by REDG and integer ATOMS.ADD, or if the
+    scatter-add's passes lack their integer ranks or its float4
+    reductions."""
     import re
     import shutil
 
@@ -325,9 +334,14 @@ def sass_atomics(path):
     for func, ops in counts.items():
         log(f"sass {func}: {ops}")
         check(not any("CAST.SPIN" in op for op in ops), f"{func} has a CAS-loop shared atomic")
-        if "win_scatter" in func:
+        if "win_scatter" in func or "row_scatter" in func:
             check(all(op.startswith(("REDG", "ATOMS.ADD")) for op in ops),
                   f"{func} adds other than by REDG and integer ATOMS.ADD: {ops}")
+    scatter = {f: ops for f, ops in counts.items() if "row_scatter" in f}
+    for part, want in (("row_scatter_count", "ATOMS.ADD"), ("row_scatter_sum", "ATOMS.ADD"),
+                       ("row_scatter_sum", "REDG"), ("row_scatter_atomic", "REDG")):
+        check(any(part in f and any(op.startswith(want) for op in ops)
+                  for f, ops in scatter.items()), f"{part} has no {want}: {scatter}")
     return counts
 
 
@@ -874,10 +888,12 @@ def phase_row_gather(dev):
     """Row 5: the row gather at the probe's shape (65,536 rows of 32 f32)
     and at the render pass's (786,432 rows gathered from 65,536), with a
     row index broadcast over the columns (the probe's form), per-element
-    indices, and per-element indices with some out of range. Bitwise equal
-    to torch.gather where the index is in range, 0 elsewhere (where
-    torch.gather would raise). Times of the broadcast form, device-only
-    and back-to-back, beside torch.gather on int64 indices."""
+    indices, and per-element indices with some negative or out of range.
+    As take_along_axis: bitwise equal to torch.gather at the index, wrapped
+    by R where it lies in [-R, 0), NaN where it lies outside [-R, R); and
+    bitwise equal to the plain version, NaN for NaN. Times of the broadcast
+    form, device-only and back-to-back, beside torch.gather on int64
+    indices."""
     import torch
 
     from spi_tpu_torch.ops.gather_scatter import row_gather_cuda, row_gather_plain
@@ -894,20 +910,26 @@ def phase_row_gather(dev):
                                     dtype=torch.int32)
         outside = per_element.clone()
         outside[::7, 3] = n_tab
-        outside[::5, :4] = -1
+        outside[::5, :4] = -1  # wraps to the last row
+        outside[1::11, 5] = -n_tab - 3
         outside[2::5] = n_tab + 5  # whole rows: the broadcast branch's range check
+        outside[3::5] = -n_tab  # whole rows wrapped to row 0: its vector load
         for kind, ix in (("broadcast", idx), ("per-element", per_element),
                          ("out of range", outside)):
             got = row_gather_cuda(tab, ix)
-            live = (ix >= 0) & (ix < n_tab)
-            want = torch.gather(tab, 0, ix.clamp(0, n_tab - 1).long())
+            wrapped = torch.where(ix < 0, ix + n_tab, ix)
+            live = (wrapped >= 0) & (wrapped < n_tab)
+            want = torch.gather(tab, 0, wrapped.clamp(0, n_tab - 1).long())
             torch.cuda.synchronize()
-            equal = torch.equal(got[live], want[live]) and not bool(got[~live].any())
-            log(f"row_gather {label} ({n}, 32) {kind}: {int((~live).sum())} indices out of "
-                f"range; bitwise equal to torch.gather in range, 0 elsewhere: {equal}")
+            equal = torch.equal(got[live], want[live]) and bool(got[~live].isnan().all())
+            plain = row_gather_plain(tab, ix)
+            same = (torch.equal(got.isnan(), plain.isnan())
+                    and torch.equal(got.nan_to_num(0.0), plain.nan_to_num(0.0)))
+            log(f"row_gather {label} ({n}, 32) {kind}: {int((ix < 0).sum())} indices negative, "
+                f"{int((~live).sum())} out of range; bitwise equal to torch.gather at the "
+                f"wrapped index, NaN out of range: {equal}; to the plain version: {same}")
             check(equal, f"row_gather {label} {kind} differs from torch.gather")
-        check(torch.equal(row_gather_cuda(tab, idx), row_gather_plain(tab, idx)),
-              f"row_gather {label} differs from its plain version")
+            check(same, f"row_gather {label} {kind} differs from its plain version")
         idx64 = idx.long()
         t = {}
         for name, fn in (("kernel", lambda: row_gather_cuda(tab, idx)),
@@ -934,57 +956,199 @@ def phase_row_gather(dev):
             "library_device_ms": t["torch.gather"][1], "library_host_us": t["torch.gather"][2]}
 
 
-def phase_row_scatter_add(dev):
-    """Row 6: 786,432 rows of 32 f32 added into (65,536, 32) f32, the
-    Pallas probe's shape; and the probe_scatter tool's 128 channels with
-    0%, 50% and 90% of the rows out of range (dropped by the kernel)."""
+# row_scatter_add's timed shapes, (label, C, share of the rows past the
+# table): the Pallas probe's 786,432 x 32 and the probe_scatter tool's 128
+# channels. Rows lie in range or past the end, none negative, so that a
+# parent checkout's kernel reads them alike in turns.
+SCATTER_SHAPES = (("x32", 32, 0.0), ("x128", 128, 0.0), ("x128 50% dead", 128, 0.5),
+                  ("x128 90% dead", 128, 0.9))
+
+
+def scatter_passes(fn):
+    """Device ms of each pass of `fn`, one row_scatter_add call, by kernel
+    name (row_scatter_count, _colscan, _place, _sum, _atomic), averaged
+    over 5 calls under torch.profiler."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    passes = {}
+    for e in prof.key_averages():
+        m = re.search(r"row_scatter_(count|colscan|place|sum|atomic)", e.key)
+        if m:
+            passes[m.group(1)] = e.device_time_total / e.count / 1e3
+    return passes
+
+
+def phase_row_scatter_add(dev, parents=()):
+    """Row 6: 786,432 rows of 32 f32 added into (65,536, 32) f32, the Pallas
+    probe's shape, and the probe_scatter tool's 128 channels with 0%, 50%
+    and 90% of the rows past the table (dropped). At each: the error
+    against the plain version, the kernel's, the plain version's and
+    index_add_'s (dead rows sent to a sink row) times back-to-back and
+    device-only, and both routes' device-only times (the kernel takes the
+    one scatter_route picks), and the bound. Then cases, each
+    held on both routes to the plain version at TOL_SCATTER, with the
+    binned route's parts and pieces (row_scatter_add_binned): one coarse
+    pass's clustered texel rows (plane 1 of probe_scatter.realistic_texels,
+    786,432 x 32), every row into one row, negative rows that wrap (and
+    some below -R, dropped), the same rows less 999 (a count that is no
+    whole number of chunks), every row dead, and no update. The one-row
+    case adds integer-valued updates, so that every sum is exact and the
+    kernel must equal the plain version bitwise: a 786,432-term f32 sum in
+    the plain version's own atomics rounds by more than TOL_SCATTER. Each
+    parent checkout's kernel is timed in turns with this one at the four
+    shapes, the clustered rows and the one row."""
     import torch
 
-    from spi_tpu_torch.ops.gather_scatter import row_scatter_add_cuda, row_scatter_add_plain
+    from spi_tpu_torch.ops.gather_scatter import (
+        row_scatter_add_atomic_cuda,
+        row_scatter_add_binned,
+        row_scatter_add_binned_cuda,
+        row_scatter_add_cuda,
+        row_scatter_add_plain,
+        scatter_route,
+    )
+    from spi_tpu_torch.tools.probe_scatter import realistic_texels
     from spi_tpu_torch.tools.timing import device_ms
 
     gen = torch.Generator(device=dev).manual_seed(11)
     n, n_out = 786432, 65536
-    worst, row = 0.0, None
-    for c, dead in ((32, 0.0), (128, 0.0), (128, 0.5), (128, 0.9)):
-        upd = torch.randn(n, c, device=dev, generator=gen)
+    routes = {"binned": row_scatter_add_binned_cuda, "atomic": row_scatter_add_atomic_cuda}
+
+    def compare(label, rows, upd, exact=False):
+        """Both routes against the plain version; the largest abs error."""
+        want = row_scatter_add_plain(rows, upd, n_out)
+        stats = row_scatter_add_binned(rows, upd, n_out)[1]
+        worst = 0.0
+        for route, kernel in routes.items():
+            got = kernel(rows, upd, n_out)
+            torch.cuda.synchronize()
+            max_abs, err = float((got - want).abs().max()), rel_err(got, want)
+            worst = max(worst, max_abs)
+            log(f"row_scatter_add {label} ({rows.numel()}, {upd.shape[1]}) -> ({n_out}, "
+                f"{upd.shape[1]}), {route}: max abs err {max_abs:.3e}, rel {err:.3e} (tol "
+                f"{'bitwise' if exact else TOL_SCATTER})" + (
+                    f"; {stats['parts']} parts, {stats['pieces']} pieces, "
+                    f"{stats['reductions']} reductions" if route == "binned" else ""))
+            check(torch.equal(got, want) if exact else err <= TOL_SCATTER,
+                  f"row_scatter_add {label} ({route}) disagrees with its plain version: {err:.3e}")
+        return worst
+
+    worst, row, shapes, inputs = 0.0, None, {}, {}
+    upd128 = torch.randn(n, 128, device=dev, generator=gen)
+    for label, c, dead in SCATTER_SHAPES:
+        upd = upd128 if c == 128 else torch.randn(n, c, device=dev, generator=gen)
         rows = torch.randint(0, n_out, (n, 1), device=dev, generator=gen, dtype=torch.int32)
         n_dead = int(n * dead)
         rows[torch.randperm(n, device=dev, generator=gen)[:n_dead]] = n_out  # interleaved
         rows64 = rows.reshape(-1).long()
-        got = row_scatter_add_cuda(rows, upd, n_out)
-        want = row_scatter_add_plain(rows, upd, n_out)
-        torch.cuda.synchronize()
-        err = rel_err(got, want)
-        max_abs = float((got - want).abs().max())
-        worst = max(worst, max_abs)
-        ms = time_ms(lambda: row_scatter_add_cuda(rows, upd, n_out))
-        plain = time_ms(lambda: row_scatter_add_plain(rows, upd, n_out))
+        worst = max(worst, compare(label, rows, upd))
         # index_add_ has no drop: the yardstick sends dead rows to a sink row.
-        lib_ms = time_ms(lambda: torch.zeros(n_out + 1, c, device=dev).index_add_(0, rows64, upd))
+        t = {name: (time_ms(fn), device_ms(fn)) for name, fn in (
+            ("kernel", lambda: row_scatter_add_cuda(rows, upd, n_out)),
+            ("plain", lambda: row_scatter_add_plain(rows, upd, n_out)),
+            ("index_add_", lambda: torch.zeros(n_out + 1, c, device=dev).index_add_(0, rows64,
+                                                                                    upd)))}
+        by_route = {route: device_ms(lambda: kernel(rows, upd, n_out))
+                    for route, kernel in routes.items()}
+        passes = scatter_passes(lambda: row_scatter_add_binned_cuda(rows, upd, n_out))
+        route = scatter_route(c, n_out, torch.cuda.get_device_properties(dev).L2_cache_size)
         # Bytes: the row ids, the live rows' updates and the table.
         nbytes = (n - n_dead) * c * 4 + rows.numel() * 4 + n_out * c * 4
         b_ms, b_by = bound_ms(nbytes, (n - n_dead) * c)
-        log(f"row_scatter_add ({n}, {c}) -> ({n_out}, {c}), {int(dead * 100)}% of rows out of "
-            f"range: max abs err {max_abs:.3e}, rel {err:.3e} (tol {TOL_SCATTER}); kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}, {nbytes / 1e6:.1f} MB)")
-        check(err <= TOL_SCATTER, f"row_scatter_add at C = {c} with {int(dead * 100)}% of rows "
-              "out of range disagrees with its plain version")
+        log(f"row_scatter_add {label}, {int(dead * 100)}% of rows past the table, {route} "
+            "route: " + ", ".join(
+                f"{k} {a:.4f} ms back-to-back, {d:.4f} ms device-only" for k, (a, d) in t.items())
+            + "; device-only by route: " + ", ".join(f"{k} {v:.4f} ms" for k, v in by_route.items())
+            + "; the binned route's passes (profiled): " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in passes.items())
+            + f"; bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB), device-only kernel at "
+            f"{100 * b_ms / t['kernel'][1]:.0f}% of it")
+        shapes[label] = {"route": route, "ms": t["kernel"][0], "device_ms": t["kernel"][1],
+                         "plain_ms": t["plain"][0], "plain_device_ms": t["plain"][1],
+                         "library_ms": t["index_add_"][0], "library_device_ms": t["index_add_"][1],
+                         "bound_ms": b_ms, **{f"{k}_device_ms": v for k, v in by_route.items()},
+                         "binned_passes_ms": passes}
+        inputs[label] = (rows, upd, n_out)
         if row is None:  # the table's row: the Pallas probe's shape
-            dms, plain_d, lib_d = (device_ms(fn) for fn in (
-                lambda: row_scatter_add_cuda(rows, upd, n_out),
-                lambda: row_scatter_add_plain(rows, upd, n_out),
-                lambda: torch.zeros(n_out + 1, c, device=dev).index_add_(0, rows64, upd)))
-            log(f"row_scatter_add ({n}, {c}): device-only kernel {dms:.4f} ms, plain "
-                f"{plain_d:.4f} ms, index_add_ {lib_d:.4f} ms")
-            row = {"ms": ms, "device_ms": dms, "plain_ms": plain, "plain_device_ms": plain_d,
-                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                   "library_device_ms": lib_d}
-        del upd, rows, rows64, got, want
+            row = {"ms": t["kernel"][0], "device_ms": t["kernel"][1], "plain_ms": t["plain"][0],
+                   "plain_device_ms": t["plain"][1], "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": t["index_add_"][0], "library_device_ms": t["index_add_"][1]}
+        del rows, rows64
+    upd = torch.randn(n, 32, device=dev, generator=gen)
+    texels = torch.from_numpy(realistic_texels(dev, 48, 128)[1].reshape(-1)).int().to(dev)
+    worst = max(worst, compare("clustered (one coarse pass, plane 1)", texels, upd))
+    hot = torch.full((n,), 12345, device=dev, dtype=torch.int32)
+    ints = torch.randint(-8, 8, (n, 32), device=dev, generator=gen).float()
+    compare("every row into row 12345", hot, ints, exact=True)
+    log("row_scatter_add device-only by route: " + "; ".join(
+        f"{label} " + ", ".join(
+            f"{route} {device_ms(lambda: kernel(r, u, n_out)):.4f} ms"
+            for route, kernel in routes.items())
+        for label, r, u in (("clustered", texels, upd), ("one row", hot, ints))))
+    inputs.update({"clustered": (texels, upd, n_out), "one row": (hot, ints, n_out)})
+    for parent in parents:
+        turns(parent, "row_scatter_add", inputs)
+    del inputs, upd128
+    negative = torch.randint(-n_out - 4096, n_out, (n,), device=dev, generator=gen,
+                             dtype=torch.int32)
+    worst = max(worst, compare("negative rows (wrapped, some below -R)", negative, upd))
+    ragged = n - 999  # not a whole number of the count pass's chunks
+    worst = max(worst, compare("ragged (786,432 - 999 rows)", negative[:ragged], upd[:ragged]))
+    dead = torch.where(negative < 0, negative - n_out - 4096, negative + n_out)
+    compare("every row dead", dead, upd, exact=True)
+    compare("no update", dead[:0], upd[:0], exact=True)
     return {"name": "row_scatter_add", "route": "cuda",
             "source": "spi_tpu_torch/csrc/row_scatter_add.cu",
-            "replaces": "tools/probe_scatter_r5.py:161", "max_abs_err": worst, **row}
+            "replaces": "tools/probe_scatter_r5.py:161", "max_abs_err": worst, **row,
+            "shapes": shapes}
+
+
+def phase_lookup_hvp(dev):
+    """A Hessian-vector product through `sample_planes`: H v of
+    sum(sample_planes(p, x) ** 2) with respect to full-width planes (256^2
+    x 32, random) at the first 8 ray rows of the coarse pass (49,152
+    points), on the card against the CPU, to TOL_SPLAT of the largest
+    entry (the splat's f32 reductions add in any order). The double
+    backward must launch the lookup once (the splat's own backward) and
+    the splat once."""
+    import torch
+
+    from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.ops import plane_splat as ps
+    from spi_tpu_torch.tools.splat_tiles import coarse_pass_points
+
+    gen = torch.Generator().manual_seed(12)
+    planes = torch.randn(1, 3, 256 * 256, 32, generator=gen)
+    v = torch.randn(planes.shape, generator=gen)
+    geom = ps.RayGeom(1, 8, 128, 48)
+    coords = coarse_pass_points(dev)[:, :geom.n_points].cpu()
+
+    def hvp(device):
+        p = planes.to(device).requires_grad_(True)
+        out = ps.sample_planes(p, coords.to(device), 1.0, geom)
+        (g,) = torch.autograd.grad(out.square().sum(), p, create_graph=True)
+        _lib.reset_launch_counts()
+        (h,) = torch.autograd.grad((g * v.to(device)).sum(), p)
+        return h, dict(_lib.launch_counts)
+
+    card, launches = hvp(dev)
+    cpu, _ = hvp(torch.device("cpu"))
+    err = rel_err(card.cpu(), cpu)
+    log(f"Hessian-vector product through the lookup ({geom.n_points} points, 256^2 x 32 "
+        f"planes): rel err card vs CPU {err:.3e} (tol {TOL_SPLAT}); double backward launched "
+        f"plane_sample {launches['plane_sample']}, plane_splat {launches['plane_splat']}")
+    check(err <= TOL_SPLAT, f"the card's Hessian-vector product disagrees with the CPU's: {err}")
+    check(launches["plane_sample"] == 1 and launches["plane_splat"] == 1,
+          f"the double backward launched {launches}, not one lookup and one splat")
 
 
 def tiny_synthesis(device, dtype):
@@ -3556,9 +3720,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", action="append", default=[],
-                    help="another checkout (e.g. a git archive under build/) whose splat and "
-                    "win_scatter kernels phase 2 times in turns with this one; may be given "
-                    "more than once")
+                    help="another checkout (e.g. a git archive under build/) whose splat, "
+                    "win_scatter and row_scatter_add kernels phase 2 times in turns with this "
+                    "one; may be given more than once")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3586,8 +3750,9 @@ def main(argv=None) -> int:
         *phase_bias_act(dev), phase_bias_act_grad2(dev),
         *phase_bias_act_bf16(dev),
         phase_win_scatter(dev, args.parent),
-        phase_row_gather(dev), phase_row_scatter_add(dev)])
+        phase_row_gather(dev), phase_row_scatter_add(dev, args.parent)])
     phase(2, "kernels under vmap", phase_vmap_kernels, dev)
+    phase(2, "Hessian-vector product through the lookup", phase_lookup_hvp, dev)
     phase(3, "tiny synthesis card vs CPU", phase_tiny_synthesis, dev)
     phase(3, "tiny RotBbox step card vs CPU", phase_tiny_rotbbox, dev)
     phase(3, "tiny ZSSGAN step card vs CPU", phase_tiny_zssgan, dev)

@@ -4,17 +4,18 @@
 // tools/profile_gather.py (launched by `pallas_gather`):
 // out[i, j] = tab[idx[i, j], j] for a (R, C) f32 table and (P, C) i32
 // indices, C a multiple of 4. Mosaic required the output to have the
-// table's shape; here P is any number of rows. An index outside [0, R)
-// gives 0 (the plain version, torch.gather, raises on it).
+// table's shape; here P is any number of rows. As jnp.take_along_axis in
+// its default mode, an index in [-R, 0) wraps to idx + R and any other
+// index outside [0, R) gives NaN.
 //
 // What bounds it on an H100: bytes (the indices and the output once, the
 // table at most once: 25.2 MB at the probe's 65536 x 32, 7.5 us at
 // 3.35 TB/s; 209.7 MB, 62.6 us, at the render pass's 786,432 rows).
 // Each thread handles four consecutive columns of one row: one 16-byte
-// index load, then one 16-byte table load when the four indices are equal
-// and in range (a row index broadcast over the columns, the probe's case
-// and the triplane lookup's form), else four scalar loads with the range
-// check; one 16-byte store. A few blocks per SM walk the elements with a
+// index load, then one 16-byte table load when the four wrapped indices
+// are equal and in range (a row index broadcast over the columns, the
+// probe's case and the triplane lookup's form), else four scalar loads
+// with the range check; one 16-byte store. A few blocks per SM walk the elements with a
 // grid-stride loop.
 //
 // Measured (chip_smoke.py phase 2, NVIDIA H100 80GB HBM3, 700 W power
@@ -33,22 +34,32 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;
 
+// The quiet NaN that take_along_axis fills with.
+__device__ __forceinline__ float fill() { return __int_as_float(0x7fc00000); }
+
+// An index in [-rows, 0) wraps to [0, rows).
+__device__ __forceinline__ int wrap(int r, int rows) { return r < 0 ? r + rows : r; }
+
 __global__ void __launch_bounds__(kThreads)
 row_gather_kernel(const float* __restrict__ tab, const int4* __restrict__ idx,
                   float4* __restrict__ out, int n4, int c, int rows) {
   const int c4 = c / 4;
   const int stride = gridDim.x * kThreads;
   for (int q = blockIdx.x * kThreads + threadIdx.x; q < n4; q += stride) {
-    const int4 r = __ldg(idx + q);
+    int4 r = __ldg(idx + q);
+    r.x = wrap(r.x, rows);
+    r.y = wrap(r.y, rows);
+    r.z = wrap(r.z, rows);
+    r.w = wrap(r.w, rows);
     const float* col = tab + (size_t)(q % c4) * 4;
     float4 v;
     if (r.x == r.y && r.x == r.z && r.x == r.w && (unsigned)r.x < (unsigned)rows) {
       v = __ldg(reinterpret_cast<const float4*>(col + (size_t)r.x * c));
     } else {
-      v.x = (unsigned)r.x < (unsigned)rows ? __ldg(col + (size_t)r.x * c) : 0.0f;
-      v.y = (unsigned)r.y < (unsigned)rows ? __ldg(col + (size_t)r.y * c + 1) : 0.0f;
-      v.z = (unsigned)r.z < (unsigned)rows ? __ldg(col + (size_t)r.z * c + 2) : 0.0f;
-      v.w = (unsigned)r.w < (unsigned)rows ? __ldg(col + (size_t)r.w * c + 3) : 0.0f;
+      v.x = (unsigned)r.x < (unsigned)rows ? __ldg(col + (size_t)r.x * c) : fill();
+      v.y = (unsigned)r.y < (unsigned)rows ? __ldg(col + (size_t)r.y * c + 1) : fill();
+      v.z = (unsigned)r.z < (unsigned)rows ? __ldg(col + (size_t)r.z * c + 2) : fill();
+      v.w = (unsigned)r.w < (unsigned)rows ? __ldg(col + (size_t)r.w * c + 3) : fill();
     }
     out[q] = v;
   }

@@ -40,6 +40,7 @@ launch_counts: dict[str, int] = {k: 0 for k in KERNELS}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures: every function returns cudaGetLastError() after its launch.
 _SIGNATURES = {
     "spi_plane_splat": [_P, _P, _P, *[_I] * 11, _F, _P],
@@ -52,7 +53,8 @@ _SIGNATURES = {
     "spi_bias_act_bwd_bf16": [_P, _P, _P, _P, *[_I] * 5, _F, _F, _F, _P],
     "spi_win_scatter": [_P, _P, _P, _P, *[_I] * 10, _P],
     "spi_row_gather": [_P, _P, _P, _I, _I, _I, _P],
-    "spi_row_scatter_add": [_P, _P, _P, _I, _I, _I, _P],
+    "spi_row_scatter_add": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+    "spi_row_scatter_add_atomic": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

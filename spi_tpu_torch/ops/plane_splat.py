@@ -9,9 +9,12 @@ a CPU tensor `sample_planes_plain`, the 4-corner gather of
 ops/grid_sample.py. Its backward is the splat: each point's cotangent
 added with bilinear weights into the three plane-gradient tables, on a
 CUDA tensor by the kernel of `csrc/plane_splat.cu`, on a CPU tensor by
-`splat_plain`, four `index_add_` calls. Both kernels share their texel
-math (`csrc/plane_texels.cuh`). There is no switch and no fallback: a
-CUDA input that a kernel does not take raises.
+`splat_plain`, four `index_add_` calls. The splat is an autograd Function
+too (`_Splat`), whose backward is the lookup again, so the planes are
+differentiable to any order (a Hessian-vector product launches the splat
+and the lookup). Both kernels share their texel math
+(`csrc/plane_texels.cuh`). There is no switch and no fallback: a CUDA
+input that a kernel does not take raises.
 
 spi_tpu ran the forward as an XLA composition and the backward as a
 Pallas kernel that tiled points by ray, reduced each tile into a VMEM
@@ -314,14 +317,10 @@ class _SamplePlanes(torch.autograd.Function):
         ctx.geom = (box_warp, h, h, planes.dtype, geom)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         (coordinates,) = ctx.saved_tensors
         box_warp, h, w, dtype, geom = ctx.geom
-        if g.is_cuda:
-            d = splat_cuda(coordinates.contiguous(), g.contiguous(), box_warp, h, w, geom)
-        else:
-            d = splat_plain(coordinates, g, box_warp, h, w)
+        d = _Splat.apply(coordinates, g, box_warp, h, w, geom)
         return d.to(dtype), None, None, None
 
     @staticmethod
@@ -340,6 +339,37 @@ class _SamplePlanes(torch.autograd.Function):
                                   coordinates.reshape(b * n, *coordinates.shape[2:]),
                                   box_warp, geom)
         return out.reshape(b, n, *out.shape[1:]), 0
+
+
+class _Splat(torch.autograd.Function):
+    """The splat as a function of the cotangent: (N, M, 3) points and
+    (N, 3, M, C) cotangents -> (N, 3, H*W, C) float32 plane gradient, by
+    `splat_cuda` on a CUDA tensor and `splat_plain` on a CPU tensor. It is
+    linear in the cotangent and the adjoint of the lookup, so its backward
+    is the lookup (`sample_planes`) of the incoming plane-shaped gradient
+    at the same points: the planes are differentiable to any order on the
+    two kernels."""
+
+    @staticmethod
+    def forward(coordinates, g, box_warp, h, w, geom):
+        if g.is_cuda:
+            return splat_cuda(coordinates.contiguous(), g.contiguous(), box_warp, h, w, geom)
+        return splat_plain(coordinates, g, box_warp, h, w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        coordinates, g, box_warp, h, w, geom = inputs
+        if ctx.needs_input_grad[0]:
+            raise RuntimeError("the splat computes no gradient for the sample coordinates")
+        ctx.save_for_backward(coordinates)
+        ctx.geom = (box_warp, g.dtype, geom)
+
+    @staticmethod
+    def backward(ctx, gg):
+        (coordinates,) = ctx.saved_tensors
+        box_warp, dtype, geom = ctx.geom
+        dg = sample_planes(gg, coordinates, box_warp, geom).to(dtype)
+        return None, dg, None, None, None, None
 
 
 def _batch_first(x, dim, b):
