@@ -18,6 +18,7 @@ from spi_tpu_torch.models.stylegan2 import seeded_init
 from spi_tpu_torch.ops import resize_bilinear
 from spi_tpu_torch.ops.roi_align import roi_align
 from spi_tpu_torch.utils.device import resolve_device
+from spi_tpu_torch.utils.stats import span
 
 _VGG_MEAN = (0.485, 0.456, 0.406)
 _VGG_STD = (0.229, 0.224, 0.225)
@@ -92,12 +93,13 @@ class BoxCXLoss(_BoxFeatures):
         self.band_width = band_width
 
     def forward(self, x, y, lm):
-        loss = 0.0
-        for fx, fy in self.box_features(x, y, lm):
-            cx = _cx(_cosine_distance(fx, fy), self.band_width)
-            cx = cx.amax(dim=1).mean(dim=1)
-            loss = loss + (-torch.log(cx + 1e-5)).mean()
-        return loss * 0.1
+        with span("spi.box_cx"):
+            loss = 0.0
+            for fx, fy in self.box_features(x, y, lm):
+                cx = _cx(_cosine_distance(fx, fy), self.band_width)
+                cx = cx.amax(dim=1).mean(dim=1)
+                loss = loss + (-torch.log(cx + 1e-5)).mean()
+            return loss * 0.1
 
 
 class BoxLoss(_BoxFeatures):

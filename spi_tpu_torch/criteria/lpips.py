@@ -20,6 +20,7 @@ from spi_tpu_torch.models.stylegan2 import seeded_init
 from spi_tpu_torch.ops import resize_bilinear
 from spi_tpu_torch.utils.device import resolve_device
 from spi_tpu_torch.utils.params import cast_call
+from spi_tpu_torch.utils.stats import span
 
 _SHIFT = (-0.030, -0.088, -0.188)
 _SCALE = (0.458, 0.448, 0.450)
@@ -57,11 +58,12 @@ class LPIPS(nn.Module):
 
     def features(self, x):
         """x in [-1, 1], (N, 3, H, W) -> list of unit-normalized activations."""
-        if x.shape[-1] > self.max_size:
-            x = resize_bilinear(x, (self.max_size, self.max_size))
-        x = (x - self.shift) / self.scale
-        feats = cast_call(self.net, self.compute_dtype, x.to(self.compute_dtype))
-        return [_normalize_activation(f.float()) for f in feats]
+        with span("spi.lpips"):
+            if x.shape[-1] > self.max_size:
+                x = resize_bilinear(x, (self.max_size, self.max_size))
+            x = (x - self.shift) / self.scale
+            feats = cast_call(self.net, self.compute_dtype, x.to(self.compute_dtype))
+            return [_normalize_activation(f.float()) for f in feats]
 
     def forward(self, x, y=None, mask=None, y_feats=None):
         """Distance summed over layers, averaged over the batch. mask:

@@ -23,6 +23,7 @@ from spi_tpu_torch.editing.text_templates import (
 )
 from spi_tpu_torch.models.perception.clip import CLIP, preprocess_gan_output
 from spi_tpu_torch.utils.device import module_device
+from spi_tpu_torch.utils.stats import span
 
 
 def _normalize(x):
@@ -151,8 +152,10 @@ class DirectionalCLIPLoss:
         """(N, 3, H, W) -> (N, 3, size, size) crops about `centers` (cx, cy)
         (clip_loss.py:206-234, one patch an image)."""
         half = size // 2
+        with span("spi.sync"):
+            xs, ys = (c.tolist() for c in centers)
         return torch.stack([img[i, :, y - half:y - half + size, x - half:x - half + size]
-                            for i, (x, y) in enumerate(zip(*[c.tolist() for c in centers]))])
+                            for i, (x, y) in enumerate(zip(xs, ys))])
 
     def patch_directional_loss(self, src_img, target_img, state: CLIPLossState, centers):
         """patch_directional_loss (clip_loss.py:259-286): cosine distance of
@@ -178,19 +181,20 @@ class DirectionalCLIPLoss:
                  texture_img=None):
         """The weighted sum of CLIPLoss.forward (clip_loss.py:294-312).
         patch_centers: the patch term's (cx, cy) (`draw_patch_centers`)."""
-        loss = 0.0
-        if self.lambda_global:
-            loss += self.lambda_global * self.global_loss(target_img, state.target_tokens)
-        if self.lambda_patch:
-            if patch_centers is None:
-                raise ValueError("the patch term needs its patch_centers")
-            loss += self.lambda_patch * self.patch_directional_loss(
-                src_img, target_img, state, patch_centers)
-        if self.lambda_direction:
-            loss += self.lambda_direction * self.directional_loss(
-                src_img, target_img, state.target_direction)
-        if self.lambda_manifold:
-            loss += self.lambda_manifold * self.manifold_loss(src_img, target_img, state)
-        if self.lambda_texture and texture_img is not None:
-            loss += self.lambda_texture * self.texture_loss(texture_img, target_img)
-        return loss
+        with span("spi.clip"):
+            loss = 0.0
+            if self.lambda_global:
+                loss += self.lambda_global * self.global_loss(target_img, state.target_tokens)
+            if self.lambda_patch:
+                if patch_centers is None:
+                    raise ValueError("the patch term needs its patch_centers")
+                loss += self.lambda_patch * self.patch_directional_loss(
+                    src_img, target_img, state, patch_centers)
+            if self.lambda_direction:
+                loss += self.lambda_direction * self.directional_loss(
+                    src_img, target_img, state.target_direction)
+            if self.lambda_manifold:
+                loss += self.lambda_manifold * self.manifold_loss(src_img, target_img, state)
+            if self.lambda_texture and texture_img is not None:
+                loss += self.lambda_texture * self.texture_loss(texture_img, target_img)
+            return loss

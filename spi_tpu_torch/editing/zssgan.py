@@ -34,6 +34,7 @@ from spi_tpu_torch.models.rendering.renderer import draw_randoms
 from spi_tpu_torch.utils.camera import canonical_camera
 from spi_tpu_torch.utils.device import module_device, resolve_device
 from spi_tpu_torch.utils.params import to_device
+from spi_tpu_torch.utils.stats import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,17 +168,21 @@ class TwinGeneratorTrainer:
         """One Adam step of the trainable twin; returns the loss (a 0-dim
         tensor). draws: as `draw` gives, plus optionally 'patch_centers';
         else drawn from the trainer's generator."""
-        d = (self.draw(self.settings.batch) if draws is None
-             else to_device(draws, self.device))
-        ws = self.sample_w(d["w"])
-        with torch.no_grad():
-            frozen_img = self.render(self.frozen, ws, d["frozen"])
-        trainable_img = self.render(self.trainable, ws, d["trainable"])
-        loss = self.clip_loss(frozen_img, trainable_img, d.get("patch_centers"))
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach()
+        with span("spi.step"):
+            with span("spi.draws"):
+                d = (self.draw(self.settings.batch) if draws is None
+                     else to_device(draws, self.device))
+            ws = self.sample_w(d["w"])
+            with torch.no_grad():
+                frozen_img = self.render(self.frozen, ws, d["frozen"])
+            trainable_img = self.render(self.trainable, ws, d["trainable"])
+            loss = self.clip_loss(frozen_img, trainable_img, d.get("patch_centers"))
+            self.optimizer.zero_grad(set_to_none=True)
+            with span("spi.backward"):
+                loss.backward()
+            with span("spi.optimizer"):
+                self.optimizer.step()
+            return loss.detach()
 
 
 class ZSSGANTrainer(TwinGeneratorTrainer):

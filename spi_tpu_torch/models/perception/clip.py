@@ -32,6 +32,7 @@ from spi_tpu_torch.models.perception.layers import BatchNorm, Conv2d
 from spi_tpu_torch.models.stylegan2 import seeded_init
 from spi_tpu_torch.ops import resize_bilinear
 from spi_tpu_torch.utils.device import resolve_device
+from spi_tpu_torch.utils.stats import span
 
 # CLIP input normalization (applied after scaling images to [0, 1]).
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -40,8 +41,10 @@ CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 def clip_normalize(x01):
     """(N, 3, H, W) in [0, 1] -> CLIP-normalized."""
-    mean = torch.tensor(CLIP_MEAN, dtype=x01.dtype, device=x01.device)[None, :, None, None]
-    std = torch.tensor(CLIP_STD, dtype=x01.dtype, device=x01.device)[None, :, None, None]
+    with span("spi.sync"):
+        mean = torch.tensor(CLIP_MEAN, dtype=x01.dtype, device=x01.device)[None, :, None, None]
+    with span("spi.sync"):
+        std = torch.tensor(CLIP_STD, dtype=x01.dtype, device=x01.device)[None, :, None, None]
     return (x01 - mean) / std
 
 

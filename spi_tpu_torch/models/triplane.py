@@ -32,6 +32,7 @@ from spi_tpu_torch.models.stylegan2 import FullyConnected, Generator, seeded_ini
 from spi_tpu_torch.models.superresolution import Superresolution
 from spi_tpu_torch.utils.device import resolve_device
 from spi_tpu_torch.utils.params import cast_call
+from spi_tpu_torch.utils.stats import span
 
 _SYNTHESIS = "backbone.synthesis."
 
@@ -165,8 +166,9 @@ class TriPlaneGenerator(nn.Module):
     def mapping(self, z, c, truncation_psi=1.0, truncation_cutoff=None):
         if self.cfg.c_gen_conditioning_zero:
             c = torch.zeros_like(c)
-        return self.backbone.mapping(z, c * self.cfg.c_scale, truncation_psi=truncation_psi,
-                                     truncation_cutoff=truncation_cutoff)
+        with span("spi.mapping"):
+            return self.backbone.mapping(z, c * self.cfg.c_scale, truncation_psi=truncation_psi,
+                                         truncation_cutoff=truncation_cutoff)
 
     def _decode(self, feats, dirs):
         """The decoder on features cast to the compute dtype; rgb and sigma
@@ -193,12 +195,13 @@ class TriPlaneGenerator(nn.Module):
             noise = self.draw_noise(ws.shape[0], generator)
         if noise is not None:
             noise = {k.removeprefix(_SYNTHESIS): v for k, v in noise.items()}
-        planes = cast_call(self.backbone.synthesis, dt, ws.to(dt), noise_mode=noise_mode,
-                           noise=noise)  # (N, 96, H, W)
-        n, _, h, w = planes.shape
-        pc = self.cfg.plane_channels
-        return (planes.reshape(n, 3, pc, h, w).permute(0, 1, 3, 4, 2).reshape(n, 3, h * w, pc)
-                .contiguous())
+        with span("spi.synthesis"):
+            planes = cast_call(self.backbone.synthesis, dt, ws.to(dt), noise_mode=noise_mode,
+                               noise=noise)  # (N, 96, H, W)
+            n, _, h, w = planes.shape
+            pc = self.cfg.plane_channels
+            return (planes.reshape(n, 3, pc, h, w).permute(0, 1, 3, 4, 2)
+                    .reshape(n, 3, h * w, pc).contiguous())
 
     def synthesis(self, ws, c, neural_rendering_resolution=None, noise_mode="const",
                   draws: dict | None = None, generator=None):
@@ -226,11 +229,12 @@ class TriPlaneGenerator(nn.Module):
         n = c.shape[0]
         cam2world = c[:, :16].reshape(-1, 4, 4)
         intrinsics = c[:, 16:25].reshape(-1, 3, 3)
-        ray_origins, ray_directions = sample_rays(cam2world, intrinsics, res)
-        feature_samples, depth_samples, _ = self.renderer(
-            planes, self._decode, ray_origins, ray_directions, draws=draws,
-            generator=generator, rays_w=res,
-        )
+        with span("spi.render"):
+            ray_origins, ray_directions = sample_rays(cam2world, intrinsics, res)
+            feature_samples, depth_samples, _ = self.renderer(
+                planes, self._decode, ray_origins, ray_directions, draws=draws,
+                generator=generator, rays_w=res,
+            )
         feature_image = feature_samples.permute(0, 2, 1).reshape(n, feature_samples.shape[-1],
                                                                  res, res)
         depth_image = depth_samples.permute(0, 2, 1).reshape(n, 1, res, res)
@@ -241,9 +245,10 @@ class TriPlaneGenerator(nn.Module):
         if ws.shape[0] != n:
             ws = ws.expand(n, *ws.shape[1:])
         dt = self.compute_dtype
-        out["image"] = cast_call(self.superresolution, dt, rgb_image.to(dt),
-                                 feature_image.to(dt), ws.to(dt),
-                                 noise_mode=self.cfg.sr_noise_mode).float()
+        with span("spi.superres"):
+            out["image"] = cast_call(self.superresolution, dt, rgb_image.to(dt),
+                                     feature_image.to(dt), ws.to(dt),
+                                     noise_mode=self.cfg.sr_noise_mode).float()
         return out
 
     def sample_mixed(self, ws, coordinates, directions, noise_mode="const", planes=None):

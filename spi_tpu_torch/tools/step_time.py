@@ -16,8 +16,7 @@ the second step (for 'rotbbox' also that of its regularizer steps, 4, 8,
 ...), every step's time, and the peak device memory. With --profile, a
 second line: one more step (a regularizer step for 'rotbbox') under
 torch.profiler, its device ms in all and in the triplane lookup's kernels
-(the lookup kernel, PyTorch's `vectorized_gather_kernel`, the splat), and
-its busy share of the median step.
+(the lookup kernel, PyTorch's `vectorized_gather_kernel`, the splat).
 `chip_smoke.py` times the same workload through `build_model`,
 `projection`, `tuning`, `rotbbox` and `time_steps` (several images a
 step through `projection_batch` and `rotbbox_batch`), and
@@ -284,7 +283,6 @@ def main(argv=None):
         fn = projection(model, args.mode, args.steps, dev)
         profiled, wait = projection(model, args.mode, 3, dev, seed=9), 1
     _, _, step_s, peak = time_steps(fn)
-    median = steady_s(step_s)
     extra = ""
     if args.mode == "rotbbox":
         median = statistics.median_high([step_s[k - 1] for k in range(4, args.steps, 4)])
@@ -301,9 +299,8 @@ def main(argv=None):
             hits = [v for k, v in per_kernel.items() if frag in k]
             parts.append(f"{what} {sum(t for t, _ in hits):.3f} ms in {sum(n for _, n in hits)}")
         print(f"{args.mode} {args.dtype} profiled step: device {total:.3f} ms in "
-              f"{sum(n for _, n in per_kernel.values())} launches, busy "
-              f"{100 * total / (median * 1e3):.1f}% of the median{extra and ' regularizer'} "
-              f"step; " + ", ".join(parts), flush=True)
+              f"{sum(n for _, n in per_kernel.values())} launches; " + ", ".join(parts),
+              flush=True)
 
 
 if __name__ == "__main__":

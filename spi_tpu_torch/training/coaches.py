@@ -64,6 +64,7 @@ from spi_tpu_torch.utils.params import (
     trainable_parameters,
     vmap_strict,
 )
+from spi_tpu_torch.utils.stats import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -300,26 +301,35 @@ def tune_generator(generator: TriPlaneGenerator, lpips: LPIPS, inputs: CoachInpu
     step, last_lpips = 0, float("inf")
     while step < s.num_steps and last_lpips > s.lpips_threshold:
         reg = bool(terms) and step % s.rot_bs == 0
-        d = _fill_draws(generator, s, draws[step] if draws is not None else {}, reg, mirror_on,
-                        dev, rng)
-        # Every render of the step reads the stage-1 noise, superresolution's
-        # included; the frozen copy keeps its own buffers. The terms render
-        # from a detached copy of the planes and add into its gradient one
-        # at a time; the sum then crosses the backbone once.
-        planes = step_fns.planes(noise, x["ws"])
-        leaf = planes.detach().requires_grad_(True)
-        loss, lp, img, gen_depth = step_fns.recon(noise, leaf, x, target_feats, d["recon"])
-        last_lpips = float(lp.detach())
-        if last_lpips > s.lpips_threshold:  # the reference breaks before optimizer.step()
-            opt.zero_grad(set_to_none=True)
-            grads = [leaf, *params]  # no gradient for the perception nets' weights
-            loss.backward(inputs=grads)
-            if reg:
-                for name, fn in terms:
-                    fn(noise, leaf, x, gen_depth, d[name]).backward(inputs=grads)
-            planes.backward(leaf.grad, inputs=params)
-            opt.step()
-        del loss, lp, planes, leaf
+        with span("spi.step"):
+            with span("spi.draws"):
+                d = _fill_draws(generator, s, draws[step] if draws is not None else {}, reg,
+                                mirror_on, dev, rng)
+            # Every render of the step reads the stage-1 noise, superresolution's
+            # included; the frozen copy keeps its own buffers. The terms render
+            # from a detached copy of the planes and add into its gradient one
+            # at a time; the sum then crosses the backbone once.
+            planes = step_fns.planes(noise, x["ws"])
+            leaf = planes.detach().requires_grad_(True)
+            with span("spi.recon"):
+                loss, lp, img, gen_depth = step_fns.recon(noise, leaf, x, target_feats,
+                                                          d["recon"])
+            with span("spi.sync"):
+                last_lpips = float(lp.detach())
+            if last_lpips > s.lpips_threshold:  # the reference breaks before optimizer.step()
+                opt.zero_grad(set_to_none=True)
+                grads = [leaf, *params]  # no gradient for the perception nets' weights
+                with span("spi.backward"):
+                    loss.backward(inputs=grads)
+                if reg:
+                    for name, fn in terms:
+                        with span(f"spi.term.{name}"):
+                            fn(noise, leaf, x, gen_depth, d[name]).backward(inputs=grads)
+                with span("spi.backward"):
+                    planes.backward(leaf.grad, inputs=params)
+                with span("spi.optimizer"):
+                    opt.step()
+            del loss, lp, planes, leaf
         if snapshot_cb is not None and s.log_snapshot > 0 and step % s.log_snapshot == 0:
             snapshot_cb(step, img.detach())
         if on_step is not None:
@@ -438,50 +448,65 @@ def tune_batch(generator: TriPlaneGenerator, lpips: LPIPS, inputs: CoachInputs,
         if not any(active):
             break
         reg = bool(terms) and it % s.rot_bs == 0
-        lane_draws = {i: _fill_draws(generator, s, draws[i][it] if draws is not None else {},
-                                     reg, mirror_lanes[i], dev, rngs[i])
-                      for i in range(b) if active[i]}
-        # A lane without a piece of the draws (stopped, or its mirror term
-        # off) computes on another lane's; that piece of its result is not
-        # applied.
-        donor = next(iter(lane_draws.values()))
-        mirror_donor = next((d["mirror"] for d in lane_draws.values() if "mirror" in d), None)
-        step_terms = [(n, fn) for n, fn in term_fns if n != "mirror" or mirror_donor is not None]
-        filled = []
-        for i in range(b):
-            d = dict(lane_draws.get(i, donor))
-            if mirror_donor is not None:
-                d.setdefault("mirror", mirror_donor)
-            filled.append(d)
-        d = stack_trees(filled)
+        with span("spi.step"):
+            with span("spi.draws"):
+                lane_draws = {i: _fill_draws(generator, s,
+                                             draws[i][it] if draws is not None else {},
+                                             reg, mirror_lanes[i], dev, rngs[i])
+                              for i in range(b) if active[i]}
+                # A lane without a piece of the draws (stopped, or its mirror
+                # term off) computes on another lane's; that piece of its
+                # result is not applied.
+                donor = next(iter(lane_draws.values()))
+                mirror_donor = next((d["mirror"] for d in lane_draws.values() if "mirror" in d),
+                                    None)
+                filled = []
+                for i in range(b):
+                    d = dict(lane_draws.get(i, donor))
+                    if mirror_donor is not None:
+                        d.setdefault("mirror", mirror_donor)
+                    filled.append(d)
+                d = stack_trees(filled)
+            step_terms = [(n, fn) for n, fn in term_fns
+                          if n != "mirror" or mirror_donor is not None]
 
-        planes = planes_fn(tensors, x["ws"])
-        leaf = planes.detach().requires_grad_(True)
-        loss, lp, img, gen_depth = recon_fn(tensors, leaf, x, target_feats, d["recon"])
-        del img
-        lp_now = lp.detach().tolist()
-        applied = [active[i] and lp_now[i] > s.lpips_threshold for i in range(b)]
-        for i in range(b):
-            if active[i]:
-                steps[i] += 1
-                lps[i] = lp_now[i]
-        if any(applied):
-            mask = torch.tensor(applied, device=dev)
-            opt.zero_grad(set_to_none=True)
-            grads = [leaf, *plist]
-            torch.where(mask, loss, 0.0).sum().backward(inputs=grads)
-            if reg:
-                for name, fn in step_terms:
-                    on = mask & torch.tensor(mirror_lanes, device=dev) if name == "mirror" else mask
-                    t = fn(tensors, leaf, x, gen_depth, d[name])
-                    torch.where(on, t, 0.0).sum().backward(inputs=grads)
-            planes.backward(leaf.grad, inputs=plist)
+            planes = planes_fn(tensors, x["ws"])
+            leaf = planes.detach().requires_grad_(True)
+            with span("spi.recon"):
+                loss, lp, img, gen_depth = recon_fn(tensors, leaf, x, target_feats, d["recon"])
+            del img
+            with span("spi.sync"):
+                lp_now = lp.detach().tolist()
+            applied = [active[i] and lp_now[i] > s.lpips_threshold for i in range(b)]
             for i in range(b):
-                if not applied[i] and i not in frozen.saved:
-                    frozen.add(i)
-            opt.step()
-            frozen.restore()
-        del loss, lp, planes, leaf
+                if active[i]:
+                    steps[i] += 1
+                    lps[i] = lp_now[i]
+            if any(applied):
+                with span("spi.sync"):
+                    mask = torch.tensor(applied, device=dev)
+                opt.zero_grad(set_to_none=True)
+                grads = [leaf, *plist]
+                with span("spi.backward"):
+                    torch.where(mask, loss, 0.0).sum().backward(inputs=grads)
+                if reg:
+                    for name, fn in step_terms:
+                        with span(f"spi.term.{name}"):
+                            on = mask
+                            if name == "mirror":
+                                with span("spi.sync"):
+                                    on = mask & torch.tensor(mirror_lanes, device=dev)
+                            t = fn(tensors, leaf, x, gen_depth, d[name])
+                            torch.where(on, t, 0.0).sum().backward(inputs=grads)
+                with span("spi.backward"):
+                    planes.backward(leaf.grad, inputs=plist)
+                for i in range(b):
+                    if not applied[i] and i not in frozen.saved:
+                        frozen.add(i)
+                with span("spi.optimizer"):
+                    opt.step()
+                    frozen.restore()
+            del loss, lp, planes, leaf
         if on_step is not None:
             on_step(it, list(lps))
         it += 1

@@ -49,6 +49,7 @@ from spi_tpu_torch.utils.params import (
     stack_trees,
     vmap_strict,
 )
+from spi_tpu_torch.utils.stats import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,15 +197,18 @@ def _optimize(settings: ProjectorSettings, w, noise: dict, step_fn, on_step):
     opt = torch.optim.Adam([w, *noise.values()], lr=0.0, betas=(0.9, 0.999), eps=1e-8)
     dists = []
     for step in range(settings.num_steps):
-        loss, dist = step_fn(step)
-        opt.zero_grad(set_to_none=True)
-        # Gradients for w and the noise maps only: none for the weights.
-        loss.backward(inputs=[w, *noise.values()])
-        for group in opt.param_groups:
-            group["lr"] = _lr_schedule(step, settings)
-        opt.step()
-        normalize_noise(noise)
-        dists.append(dist.detach())
+        with span("spi.step"):
+            loss, dist = step_fn(step)
+            opt.zero_grad(set_to_none=True)
+            # Gradients for w and the noise maps only: none for the weights.
+            with span("spi.backward"):
+                loss.backward(inputs=[w, *noise.values()])
+            with span("spi.optimizer"):
+                for group in opt.param_groups:
+                    group["lr"] = _lr_schedule(step, settings)
+                opt.step()
+                normalize_noise(noise)
+            dists.append(dist.detach())
         if on_step is not None:
             on_step(step, dist.detach())
     return torch.stack(dists, dim=-1)
@@ -235,7 +239,8 @@ def project(generator: TriPlaneGenerator, lpips: LPIPS, target, camera,
     fixed = _fixed(lpips, settings.mode, target, camera)
 
     def step_fn(step):
-        w_noise, render = _step_draws(generator, settings, draws, step, w.shape, dev, rng)
+        with span("spi.draws"):
+            w_noise, render = _step_draws(generator, settings, draws, step, w.shape, dev, rng)
         return _image_loss(generator, lpips, settings, noise, w, w_noise,
                            _w_noise_scale(step, w_std, settings), fixed, render)
 
@@ -279,10 +284,12 @@ def project_batch(generator: TriPlaneGenerator, lpips: LPIPS, targets, cameras,
     loss_fn = vmap_strict(functools.partial(_image_loss, generator, lpips, settings))
 
     def step_fn(step):
-        per_image = [_step_draws(generator, settings, draws[i], step, w.shape[1:], dev, rngs[i])
-                     for i in range(b)]
-        w_noise, render = stack_trees(per_image)
-        scale = torch.tensor([_w_noise_scale(step, s, settings) for s in w_stds], device=dev)
+        with span("spi.draws"):
+            per_image = [_step_draws(generator, settings, draws[i], step, w.shape[1:], dev,
+                                     rngs[i]) for i in range(b)]
+            w_noise, render = stack_trees(per_image)
+        with span("spi.sync"):
+            scale = torch.tensor([_w_noise_scale(step, s, settings) for s in w_stds], device=dev)
         loss, dist = loss_fn(noise, w, w_noise, scale, fixed, render)
         return loss.sum(), dist
 

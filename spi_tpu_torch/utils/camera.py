@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from spi_tpu_torch.utils.stats import span
+
 # Canonical FFHQ-EG3D viewing geometry (spi/utils/camera_utils.py:233-240).
 CANONICAL_RADIUS = 2.7
 CANONICAL_LOOKAT = (0.0, 0.0, 0.2)
@@ -29,8 +31,9 @@ def create_cam2world_matrix(forward_vector, origin):
     """y-up, no-roll cam2world from forward direction + position
     (eg3d/camera_utils.py:118-139)."""
     forward_vector = normalize_vecs(forward_vector)
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=forward_vector.dtype,
-                      device=forward_vector.device).expand_as(forward_vector)
+    with span("spi.sync"):
+        up = torch.tensor([0.0, 1.0, 0.0], dtype=forward_vector.dtype,
+                          device=forward_vector.device).expand_as(forward_vector)
     right = -normalize_vecs(torch.linalg.cross(up, forward_vector, dim=-1))
     up = normalize_vecs(torch.linalg.cross(forward_vector, right, dim=-1))
     n = forward_vector.shape[0]
@@ -60,7 +63,8 @@ def lookat_pose(h, v, lookat_position, radius: float = CANONICAL_RADIUS):
     """cam2world for cameras at spherical (h, v), each (N, 1), looking at a
     point (eg3d/camera_utils.py:58-96)."""
     origins = _spherical_origin(h, v, radius)
-    lookat = torch.tensor(lookat_position, dtype=origins.dtype, device=origins.device)
+    with span("spi.sync"):
+        lookat = torch.tensor(lookat_position, dtype=origins.dtype, device=origins.device)
     return create_cam2world_matrix(normalize_vecs(lookat - origins), origins)
 
 
@@ -73,8 +77,9 @@ def fov_to_intrinsics(fov_degrees: float, device=None):
 
 
 def default_intrinsics(device=None):
-    return torch.tensor([[CANONICAL_FOCAL, 0, 0.5], [0, CANONICAL_FOCAL, 0.5], [0, 0, 1]],
-                        dtype=torch.float32, device=device)
+    with span("spi.sync"):
+        return torch.tensor([[CANONICAL_FOCAL, 0, 0.5], [0, CANONICAL_FOCAL, 0.5], [0, 0, 1]],
+                            dtype=torch.float32, device=device)
 
 
 def pack_camera(cam2world, intrinsics):
@@ -160,8 +165,9 @@ def sample_surrounding_camera(middle_camera, batch_size: int = 1, yaw_range: flo
 def flip_yaw(pose):
     """Mirror a cam2world about the x = 0 plane
     (spi/utils/camera_utils.py:336-343)."""
-    signs = torch.tensor([[1, -1, -1, -1], [-1, 1, 1, 1], [-1, 1, 1, 1], [1, 1, 1, 1]],
-                         dtype=pose.dtype, device=pose.device)
+    with span("spi.sync"):
+        signs = torch.tensor([[1, -1, -1, -1], [-1, 1, 1, 1], [-1, 1, 1, 1], [1, 1, 1, 1]],
+                             dtype=pose.dtype, device=pose.device)
     return pose * signs
 
 

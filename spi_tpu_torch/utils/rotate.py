@@ -15,6 +15,7 @@ import torch
 from spi_tpu_torch.ops import resize_bilinear
 from spi_tpu_torch.ops.grid_sample import grid_sample
 from spi_tpu_torch.utils.camera import unpack_camera
+from spi_tpu_torch.utils.stats import span
 
 
 def _intrinsics(intrinsics):
@@ -43,7 +44,9 @@ def project(world_points, cam2world, intrinsics):
     """World points (N, P, 4) -> uv in [0, 1] (N, P, 2) and camera-space
     depth (N, P) (rotate.py:32-52)."""
     fx, fy, cx, cy, sk = _intrinsics(intrinsics)
-    cam_rel = torch.einsum("nij,npj->npi", torch.linalg.inv(cam2world), world_points)
+    with span("spi.sync"):  # torch.linalg.inv reads its error code back
+        world2cam = torch.linalg.inv(cam2world)
+    cam_rel = torch.einsum("nij,npj->npi", world2cam, world_points)
     x_lift, y_lift, z_cam = cam_rel[..., 0], cam_rel[..., 1], cam_rel[..., 2]
     y_uv = y_lift / z_cam * fy + cy
     x_uv = x_lift / z_cam * fx + sk * y_uv / fy - cy * sk / fy + cx

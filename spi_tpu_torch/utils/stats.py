@@ -6,17 +6,21 @@ spi_tpu/utils/stats.py; spec eg3d/torch_utils/training_stats.py:57-211).
 training loop (training_loop.py:430-447). Across processes the triples
 meet in one all-reduce over `torch.distributed` (`cross_device_sum`,
 training_stats._sync :245-266); in a single process it changes nothing.
+`span` marks a part of the program for torch.profiler's trace.
 """
 
 from __future__ import annotations
 
-import functools
+import contextlib
 import json
 import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.autograd import profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def moments_of(x) -> torch.Tensor:
@@ -92,17 +96,14 @@ class Collector:
             f.write(json.dumps(entry) + "\n")
 
 
-def profiled(name: str):
-    """Decorator: runs the function inside `torch.profiler.record_function`
-    (eg3d/torch_utils/misc.py:102-107), so that a profile shows it as a
-    span."""
-
-    def wrap(fn):
-        @functools.wraps(fn)
-        def inner(*args, **kwargs):
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-
-        return inner
-
-    return wrap
+def span(name: str):
+    """A context manager that marks a span `name` of the program (the
+    `spi.*` names: the loops' steps and their parts, the generator's and
+    the losses' networks) while a `torch.profiler` runs, as
+    `torch.profiler.record_function` (eg3d/torch_utils/misc.py:102-107);
+    the profiler keeps it beside the operators and exports it with its
+    trace. With no profiler running it returns a shared context that does
+    nothing, and calls no profiler operator."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
