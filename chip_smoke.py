@@ -16,7 +16,11 @@ Phases (any failure exits non-zero):
      (tools/timing.py), beside the roofline bound; row_scatter_add on
      both its routes, with the binned route's passes profiled, at four
      shapes and on clustered, one-row, negative, dead and empty rows; a
-     Hessian-vector product through the lookup, card against CPU; with
+     Hessian-vector product through the lookup, card against CPU;
+     upfirdn2d (row 8) forward, backward and double backward against
+     upfirdn2d_plain at the callers' shapes (FIR_SHAPES), timed against its
+     bytes bound, the plain version and ATen's depthwise convolution, and
+     under vmap (one launch); with
      --parent, time each such checkout's splat, win_scatter and
      row_scatter_add kernels in turns with this one on the same inputs;
   3. tiny_test_config synthesis forward and w / noise / weight gradients:
@@ -206,8 +210,9 @@ RMS_BF16 = 0.05
 BF16_FACTOR = 2.0
 
 # The kernels each path is meant to launch.
-INVERSION_KERNELS = ("plane_splat", "plane_sample", "bias_act_fwd", "bias_act_bwd")
-BF16_KERNELS = ("plane_splat", "plane_sample_bf16", "bias_act_fwd_bf16", "bias_act_bwd_bf16")
+INVERSION_KERNELS = ("plane_splat", "plane_sample", "bias_act_fwd", "bias_act_bwd", "upfirdn2d")
+BF16_KERNELS = ("plane_splat", "plane_sample_bf16", "bias_act_fwd_bf16", "bias_act_bwd_bf16",
+                "upfirdn2d_bf16")
 PATH_KERNELS = {"float32": INVERSION_KERNELS, "bfloat16": BF16_KERNELS}
 # The lookup kernel's form for a path's planes (the generator's compute dtype).
 SAMPLE_KERNEL = {"float32": "plane_sample", "bfloat16": "plane_sample_bf16"}
@@ -1112,6 +1117,197 @@ def phase_row_scatter_add(dev, parents=()):
             "shapes": shapes}
 
 
+# upfirdn2d's shapes (row 8): (label, x's shape, dtype, case). The cases
+# are the callers': "fir" the FIR after each up block's transposed
+# convolution (a 4x4 binomial, pad 1, gain 4), "skip" a ToRGB skip's
+# upsample2d (up 2, pad (2, 1), gain 4), "sg3 up" / "sg3 down" the
+# largest StyleGAN3-T filtered_lrelu's two FIRs (1-D Kaiser filters of 12
+# taps). N = 16 is a RotBbox rot or mirror term's batch of images, 4 the
+# reconstruction's, 2 the editing cell's.
+FIR_SHAPES = (
+    ("SR block1", (16, 128, 513, 513), "bfloat16", "fir"),
+    ("SR block0", (16, 256, 257, 257), "bfloat16", "fir"),
+    ("SR block1 skip", (16, 3, 256, 256), "bfloat16", "skip"),
+    ("backbone 256", (4, 128, 257, 257), "bfloat16", "fir"),
+    ("backbone skip", (4, 96, 128, 128), "bfloat16", "skip"),
+    ("editing SR block1", (2, 128, 513, 513), "float32", "fir"),
+    ("editing SR block0", (2, 256, 257, 257), "float32", "fir"),
+    ("editing skip", (2, 96, 128, 128), "float32", "skip"),
+    ("sg3 up", (1, 81, 1046, 1046), "float32", "sg3 up"),
+    ("sg3 down", (1, 81, 2098, 2098), "float32", "sg3 down"),
+)
+# upfirdn2d, kernel vs plain version: float32 within TOL_FIR of the
+# largest entry (the same products summed in another order; the separable
+# form's 1-D taps also round apart from the 2-D products). bf16: one
+# rounding of a float32 sum of the same exact products in another order,
+# so every entry within TOL_BF16_ULP of the plain version's, beyond what
+# the order can move the float32 sum where it cancels: 2 n 2^-24 times the
+# sum of the n products' magnitudes (where the terms are large against
+# their sum, a few float32 ulps of them are bf16 ulps of it).
+TOL_FIR = 1e-6
+
+
+def fir_case(case, dev):
+    """(filter, up, down, padding, gain) of a FIR_SHAPES case."""
+    from spi_tpu_torch.models.stylegan3 import design_lowpass_filter
+    from spi_tpu_torch.ops.upfirdn2d import setup_filter
+
+    if case in ("fir", "skip"):
+        f = setup_filter([1, 3, 3, 1], device=dev)
+        return (f, 1, 1, (1, 1, 1, 1), 4.0) if case == "fir" else (f, 2, 1, (2, 1, 2, 1), 4.0)
+    f = design_lowpass_filter(numtaps=12, cutoff=256.0, width=2 * 148.0, fs=2 * 1024.0 * 2)
+    f = setup_filter(f, device=dev)
+    return (f, 2, 1, (9, 8, 9, 8), 4.0) if case == "sg3 up" else (f, 1, 2, (0, 0, 0, 0), 1.0)
+
+
+def fir_agrees(label, got, want, dtype, magnitude, taps):
+    """Check the kernel's result against the plain version's; return the
+    largest error (relative to the largest entry in float32, in bf16 ulps
+    of the plain version's entry in bfloat16). `magnitude`: each entry's
+    sum of the magnitudes of its `taps` products (float32)."""
+    if dtype == "float32":
+        err = rel_err(got, want)
+        check(err <= TOL_FIR, f"upfirdn2d {label}: {err:.3e} of the largest entry")
+        return err
+    diff = (got.float() - want.float()).abs()
+    ulp = bf16_ulp(want)
+    ulps = float((diff / ulp).max())
+    order = 2 * taps * 2.0**-24 * magnitude
+    within = bool((diff <= TOL_BF16_ULP * ulp + order).all())
+    log(f"upfirdn2d {label}: {int((diff > TOL_BF16_ULP * ulp).sum())} of {diff.numel()} "
+        f"entries over {TOL_BF16_ULP} bf16 ulp; all within it and the order term: {within}")
+    check(within, f"upfirdn2d {label}: {ulps} bf16 ulps, beyond the float32 order term")
+    return ulps
+
+
+def phase_upfirdn2d(dev):
+    """Row 8: upfirdn2d's kernel against `upfirdn2d_plain` on the card at
+    each of FIR_SHAPES: the forward, the backward (the kernel on the
+    adjoint problem against autograd of the plain version) and a double
+    backward (the backward's gradient with respect to the cotangent);
+    float32 within TOL_FIR of the largest entry, bf16 within TOL_BF16_ULP.
+    Then device-only and back-to-back ms of the kernel forward and adjoint
+    against the bytes bound (x read once, y written once), the plain
+    version (forward; autograd's backward of it) and ATen's depthwise
+    convolution alone on the padded input (its forward and input
+    gradient), the library yardstick; and under vmap (B = 3 images of the
+    SR block0 shape at N = 2) one launch, bitwise against a loop."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.tools.timing import device_ms
+    from spi_tpu_torch.utils.params import vmap_strict
+
+    up2d = importlib.import_module("spi_tpu_torch.ops.upfirdn2d")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows, worst = {}, {"float32": 0.0, "bfloat16": 0.0}
+    for label, shape, dtype, case in FIR_SHAPES:
+        dt = getattr(torch, dtype)
+        f, up, down, pad, gain = fir_case(case, dev)
+        args = ((up, up), (down, down), pad, False, gain)
+        x = torch.randn(*shape, device=dev, generator=gen).to(dt).requires_grad_(True)
+        _lib.reset_launch_counts()
+        y = up2d.upfirdn2d(x, f, up, down, pad, gain=gain)
+        check(_lib.launch_counts[up2d._COUNTS[dt]] == 1, f"upfirdn2d {label}: no launch")
+        yp = up2d.upfirdn2d_plain(x, f, up, down, pad, gain=gain)
+        g = torch.randn(y.shape, device=dev, generator=gen).to(dt)
+        (dx,) = torch.autograd.grad(y, x, g)
+        (dxp,) = torch.autograd.grad(yp, x, g)
+        v = torch.randn(dx.shape, device=dev, generator=gen).to(dt)
+        gk = g.detach().requires_grad_(True)
+        (dxk,) = torch.autograd.grad(up2d.upfirdn2d(x, f, up, down, pad, gain=gain), x, gk,
+                                     create_graph=True)
+        (ddg,) = torch.autograd.grad(dxk, gk, v)
+        gp = g.detach().requires_grad_(True)
+        (dxq,) = torch.autograd.grad(up2d.upfirdn2d_plain(x, f, up, down, pad, gain=gain), x,
+                                     gp, create_graph=True)
+        (ddgp,) = torch.autograd.grad(dxq, gp, v)
+        # Each entry's sum of its products' magnitudes, in float32.
+        fa = f.abs()
+        xa = x.detach().abs().float().requires_grad_(True)
+        mag_y = up2d.upfirdn2d_plain(xa, fa, up, down, pad, gain=abs(gain))
+        (mag_dx,) = torch.autograd.grad(mag_y, xa, g.abs().float())
+        mag_ddg = up2d.upfirdn2d_plain(v.abs().float(), fa, up, down, pad, gain=abs(gain))
+        taps = math.prod(up2d.filter_size(f)) // up**2
+        torch.cuda.synchronize()
+        errs = [fir_agrees(f"{label} {kind}", a.detach(), b.detach(), dtype, m.detach(), t)
+                for kind, a, b, m, t in (("forward", y, yp, mag_y, taps),
+                                         ("backward", dx, dxp, mag_dx, taps * up**2 // down**2),
+                                         ("double backward", ddg, ddgp, mag_ddg, taps))]
+        del fa, xa, mag_y, mag_dx, mag_ddg
+        worst[dtype] = max(worst[dtype], *errs)
+        unit = "of the largest entry" if dtype == "float32" else "bf16 ulps"
+        log(f"upfirdn2d {label} {shape} {dtype} {case}: forward {errs[0]:.3g}, backward "
+            f"{errs[1]:.3g}, double backward {errs[2]:.3g} {unit}")
+        del y, yp, dx, dxp, v, gk, dxk, ddg, gp, dxq, ddgp
+        xd, gd = x.detach(), g
+        fw, fh = up2d.filter_size(f)
+        oh, ow = gd.shape[2:]
+        adj = (fw - pad[0] - 1, shape[3] * up - ow * down + pad[0] - up + 1,
+               fh - pad[2] - 1, shape[2] * up - oh * down + pad[2] - up + 1)
+        # ATen's depthwise call alone, on the padded (zero-upsampled) input.
+        xpad = up2d.upfirdn2d_plain(xd, None, up, 1, pad).detach()
+        w = (f.flip([0, 1]) if f.ndim == 2 else torch.outer(f, f).flip([0, 1])) * gain
+        w = w.to(dt)[None, None].repeat(shape[1], 1, 1, 1)
+        xpr = xpad.requires_grad_(True)
+        yl = F.conv2d(xpr, w, stride=down, groups=shape[1])
+        xr = xd.detach().requires_grad_(True)
+        ypl = up2d.upfirdn2d_plain(xr, f, up, down, pad, gain=gain)
+        fns = {
+            "kernel forward": lambda: up2d.upfirdn2d_cuda(xd, f, *args),
+            "kernel adjoint": lambda: up2d.upfirdn2d_cuda(gd, f, args[1], args[0], adj, True,
+                                                          gain),
+            "plain forward": lambda: up2d.upfirdn2d_plain(xd, f, up, down, pad, gain=gain),
+            "plain backward": lambda: torch.autograd.grad(ypl, xr, gd, retain_graph=True),
+            "library forward": lambda: F.conv2d(xpad, w, stride=down, groups=shape[1]),
+            "library backward": lambda: torch.autograd.grad(yl, xpr, gd, retain_graph=True),
+        }
+        ms = {k: (time_ms(fn), device_ms(fn)) for k, fn in fns.items()}
+        nbytes = (xd.numel() + gd.numel()) * xd.element_size()
+        b_ms, b_by = bound_ms(nbytes, 0)
+        log(f"upfirdn2d {label}: bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB); "
+            + ", ".join(f"{k} {a:.4f} ms back-to-back, {d:.4f} device-only"
+                        f"{f' ({100 * b_ms / d:.1f}% of the bound)' if 'kernel' in k else ''}"
+                        for k, (a, d) in ms.items()))
+        rows[label] = (ms, b_ms, b_by)
+        del x, g, xd, gd, xpad, xpr, yl, xr, ypl, fns
+        torch.cuda.empty_cache()
+
+    # Under vmap: B images of the editing cell's block0 shape, one launch.
+    f, up, down, pad, gain = fir_case("fir", dev)
+    xs = torch.randn(3, 2, 256, 257, 257, device=dev, generator=gen).to(torch.bfloat16)
+
+    def fir(x):
+        return up2d.upfirdn2d(x, f, up, down, pad, gain=gain)
+
+    _lib.reset_launch_counts()
+    got = vmap_strict(fir)(xs)
+    n = _lib.launch_counts["upfirdn2d_bf16"]
+    same = torch.equal(got, torch.stack([fir(x) for x in xs]))
+    log(f"upfirdn2d under vmap B=3 {tuple(xs.shape)} bf16: {n} launch; bitwise the loop: {same}")
+    check(n == 1 and same, "upfirdn2d under vmap")
+    del xs, got
+    torch.cuda.empty_cache()
+
+    out = []
+    for name, label, dtype in (("upfirdn2d", "editing SR block1", "float32"),
+                               ("upfirdn2d_bf16", "SR block1", "bfloat16")):
+        ms, b_ms, b_by = rows[label]
+        out.append({"name": name, "route": "cuda", "source": "spi_tpu_torch/csrc/upfirdn2d.cu",
+                    "replaces": None, "max_abs_err": worst[dtype], "shape": label,
+                    "ms": ms["kernel forward"][0], "device_ms": ms["kernel forward"][1],
+                    "adjoint_ms": ms["kernel adjoint"][0],
+                    "adjoint_device_ms": ms["kernel adjoint"][1],
+                    "plain_ms": ms["plain forward"][0],
+                    "plain_device_ms": ms["plain forward"][1], "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": ms["library forward"][0],
+                    "library_device_ms": ms["library forward"][1]})
+    return out
+
+
 def phase_lookup_hvp(dev):
     """A Hessian-vector product through `sample_planes`: H v of
     sum(sample_planes(p, x) ** 2) with respect to full-width planes (256^2
@@ -1505,7 +1701,7 @@ CONV_OR_MATMUL = ("conv", "implicit", "wgrad", "dgrad", "gemm", "gemv", "xmma", 
 TENSOR_CORE = ("bf16", "f16", "tf32", "s16816", "s1688", "hmma", "gmma", "tensorop", "wmma")
 KINDS = (
     ("plane_splat", "splat kernel"), ("plane_sample", "plane sample kernel"),
-    ("bias_act", "bias_act kernels"),
+    ("bias_act", "bias_act kernels"), ("upfirdn2d", "upfirdn2d kernel"),
     ("softmax", "softmax (CLIP attention)"), ("layer_norm", "layer norm (CLIP)"),
     ("fft", "convolution (FFT)"), ("float2", "convolution (FFT)"),
     ("conv", "convolution"), ("implicit", "convolution"), ("wgrad", "convolution"),
@@ -1517,12 +1713,15 @@ KINDS = (
 )
 
 
-def profile_step(label, fn, wait, steady_s, of_what):
+def profile_step(label, fn, wait, steady_s, of_what, aten_depthwise=False):
     """Run the workload `fn(on_step)` under torch.profiler and keep its step
     number `wait` + 1 (after `wait` steps and one warm-up step): device time
     by kernel and by kind, and its share of `steady_s`, an unprofiled step
     time (the profiler's own overhead stretches the profiled step's wall
-    time). Returns ({kind: device ms}, total device ms)."""
+    time). Fails where ATen's depthwise convolution ran, unless
+    `aten_depthwise` (the discriminator's FIRs, ops/gradfix.py): every
+    generator FIR is the upfirdn2d kernel. Returns ({kind: device ms},
+    total device ms)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1534,7 +1733,8 @@ def profile_step(label, fn, wait, steady_s, of_what):
     for name, (t, _) in per_kernel.items():
         low = name.lower()
         kind = next((k for frag, k in KINDS if frag in low), "other")
-        if (kind not in ("splat kernel", "plane sample kernel", "bias_act kernels")
+        if (kind not in ("splat kernel", "plane sample kernel", "bias_act kernels",
+                         "upfirdn2d kernel")
                 and any(f in low for f in CONV_OR_MATMUL) and any(f in low for f in TENSOR_CORE)):
             kind = "convolution/matmul on tensor cores"
         kinds[kind] = kinds.get(kind, 0.0) + t
@@ -1552,6 +1752,11 @@ def profile_step(label, fn, wait, steady_s, of_what):
     gather = [(t, n) for name, (t, n) in per_kernel.items() if "vectorized_gather_kernel" in name]
     log(f"profile: vectorized_gather_kernel {sum(t for t, _ in gather):.3f} ms in "
         f"{sum(n for _, n in gather)} launches of a {label}")
+    # ATen's depthwise convolution ran the FIR filters before the upfirdn2d kernel.
+    depthwise = [(t, n) for name, (t, n) in per_kernel.items() if "conv_depthwise2d" in name]
+    log(f"profile: conv_depthwise2d {sum(t for t, _ in depthwise):.3f} ms in "
+        f"{sum(n for _, n in depthwise)} launches of a {label}")
+    check(aten_depthwise or not depthwise, f"{label}: ATen's depthwise convolution ran")
     return kinds, total
 
 
@@ -2357,6 +2562,9 @@ def phase_batch_timing(dev, steps=5):
                 continue
             peak = torch.cuda.max_memory_allocated()
             cadence = {k: sum(s[k] for s in per_step[1:5]) for k in per_step[1]}
+            fir = "upfirdn2d" + ("_bf16" if dtype == "bfloat16" else "")
+            log(f"{label}: {cadence[fir]} {fir} launches in one RotBbox cadence (steps 1-4), "
+                f"{per_step[4][fir]} in its regularizer step")
             table[(dtype, "rotbbox", b)] = (sum(step_s[:4]) / (4 * b), peak, cadence)
             torch.cuda.empty_cache()
         for path in ("sg", "rotbbox"):
@@ -3160,7 +3368,8 @@ def phase_gan(dev):
         gan_steps(tr, real, c, [17, 18, 19], on_step)
 
     kinds_ms, total = profile_step(f"plain GAN step (batch {batch})", plain_steps, 1,
-                                   kinds["plain"], "phase 20's median plain step time")
+                                   kinds["plain"], "phase 20's median plain step time",
+                                   aten_depthwise=True)
     f32_conv = sum(t for k, t in kinds_ms.items() if k in ("convolution", "convolution (FFT)"))
     log(f"GAN plain step: float32 convolutions (D; G computes in bf16 on tensor cores) "
         f"{f32_conv:.3f} ms, {100 * f32_conv / total:.1f}% of the device time, "
@@ -3170,7 +3379,8 @@ def phase_gan(dev):
         gan_steps(tr, real, c, [33, 34, 48], on_step)
 
     profile_step(f"R1 + density TV GAN step (batch {batch})", r1_steps, 1,
-                 kinds["R1 + density TV"], "phase 20's warm R1 + TV step time")
+                 kinds["R1 + density TV"], "phase 20's warm R1 + TV step time",
+                 aten_depthwise=True)
 
     # The kernels at the shapes this path gives them, against their plain
     # versions: one more R1 + density TV step records each wrapper's
@@ -3311,7 +3521,7 @@ SG3_TINY = dict(z_dim=16, c_dim=0, w_dim=16, img_resolution=32, img_channels=3,
 # spi_tpu's SG3Generator defaults), phase 23.
 SG3_T = dict(z_dim=512, c_dim=0, w_dim=512, img_resolution=1024, img_channels=3)
 SG3_T_ENTRIES = 22_315_239  # parameters plus persistent buffers
-SG3_KERNELS = ("bias_act_fwd", "bias_act_bwd")
+SG3_KERNELS = ("bias_act_fwd", "bias_act_bwd", "upfirdn2d")
 
 
 def tiny_sg3(device):
@@ -3589,8 +3799,8 @@ def phase_sg3(dev, runs=3):
     after the first, the peak memory, the launches of one forward and one
     backward), the largest bias_act call's inputs kernel against plain
     version bitwise (KernelInputs), one forward + backward under
-    torch.profiler (device ms by kind: the FIR filters' depthwise
-    convolutions, the modulated convolutions, bias_act), and last one
+    torch.profiler (device ms by kind: the FIR filters' upfirdn2d kernels,
+    the modulated convolutions, bias_act), and last one
     magnitude EMA renewed (update_emas) against its rule on the layer's
     input. Returns the launches of one forward + backward."""
     import statistics
@@ -3677,8 +3887,8 @@ def phase_sg3(dev, runs=3):
         low = name.lower()
         if "bias_act" in low:
             kind = "bias_act kernels"
-        elif "depthwise" in low:
-            kind = "FIR filters (depthwise convolution)"
+        elif "depthwise" in low:  # upfirdn2d_depthwise_* (ATen's conv_depthwise2d before)
+            kind = "FIR filters (the upfirdn2d kernel)"
         elif any(f in low for f in CONV_OR_MATMUL):
             kind = "convolution / matmul (the modulated convolutions, affines, mapping)"
         else:
@@ -3750,7 +3960,8 @@ def main(argv=None) -> int:
         *phase_bias_act(dev), phase_bias_act_grad2(dev),
         *phase_bias_act_bf16(dev),
         phase_win_scatter(dev, args.parent),
-        phase_row_gather(dev), phase_row_scatter_add(dev, args.parent)])
+        phase_row_gather(dev), phase_row_scatter_add(dev, args.parent),
+        *phase_upfirdn2d(dev)])
     phase(2, "kernels under vmap", phase_vmap_kernels, dev)
     phase(2, "Hessian-vector product through the lookup", phase_lookup_hvp, dev)
     phase(3, "tiny synthesis card vs CPU", phase_tiny_synthesis, dev)

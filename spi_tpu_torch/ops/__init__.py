@@ -1,7 +1,8 @@
 """Tensor ops of the port (counterpart of spi_tpu/ops).
 
-The kernels of the inversion path are `bias_act` and `sample_planes`'s
-lookup forward and splat backward; everything else on it is plain PyTorch. The probe
+The kernels of the inversion path are `bias_act`, `upfirdn2d` (the FIR of
+every resampling convolution) and `sample_planes`'s lookup forward and
+splat backward; everything else on it is plain PyTorch. The probe
 kernels `win_scatter` (ops/win_scatter.py) and `row_gather` /
 `row_scatter_add` (ops/gather_scatter.py) serve the probe tools.
 `filtered_lrelu` (StyleGAN3) is composed of `bias_act` and `upfirdn2d`.

@@ -34,7 +34,7 @@ NVCC_FLAGS = [
 
 KERNELS = ("plane_splat", "plane_sample", "plane_sample_bf16", "bias_act_fwd", "bias_act_bwd",
            "bias_act_grad2", "bias_act_fwd_bf16", "bias_act_bwd_bf16", "win_scatter",
-           "row_gather", "row_scatter_add")
+           "row_gather", "row_scatter_add", "upfirdn2d", "upfirdn2d_bf16")
 launch_counts: dict[str, int] = {k: 0 for k in KERNELS}
 
 _P = ctypes.c_void_p
@@ -55,6 +55,8 @@ _SIGNATURES = {
     "spi_row_gather": [_P, _P, _P, _I, _I, _I, _P],
     "spi_row_scatter_add": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
     "spi_row_scatter_add_atomic": [_P, _P, _P, _I, _I, _I, _P],
+    "spi_upfirdn2d": [_P, _P, _P, *[_I] * 16, _F, _P],
+    "spi_upfirdn2d_bf16": [_P, _P, _P, *[_I] * 16, _F, _P],
 }
 
 _lib = None

@@ -3,7 +3,8 @@ spi_tpu/ops/conv.py; spec EG3D conv2d_resample.py:48-145).
 
 The branch structure of `conv2d_resample`, which factors the
 up/FIR/conv/down pipeline into the cheapest primitive sequence, is kept
-as the spec; each primitive is `F.conv2d` / `F.conv_transpose2d`.
+as the spec; each convolution is `F.conv2d` / `F.conv_transpose2d`, each
+FIR `upfirdn2d` (on a card the kernel of csrc/upfirdn2d.cu).
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ torch_utils/ops/filtered_lrelu.py:58-155, `_filtered_lrelu_ref` at
 
 spi_tpu composes it from XLA ops, not a Pallas kernel, so the port composes
 it from its own pieces: both `bias_act` calls launch the CUDA bias_act
-kernels on a card, and the FIRs are `upfirdn2d`'s depthwise convolutions.
+kernels on a card, and both FIRs the upfirdn2d kernel (separable for the
+1-D float32 filters).
 The filters are float32 tensors (1D separable or 2D), or None for the
 identity.
 """
