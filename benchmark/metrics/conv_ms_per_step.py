@@ -1,8 +1,16 @@
 """Device ms in convolution kernels in the traced slice, over its steps
-(ops/conv.py under the StyleGAN2 synthesis, the superresolution and the
-VGG nets): cuDNN's direct, implicit-GEMM, Winograd and FFT kernels (with
-the FFT's complex products), data and weight gradients, and the FIR
-filters' depthwise convolutions."""
+(ops/conv.py under the StyleGAN2 and StyleGAN3 synthesis, the
+superresolution and the VGG nets): cuDNN's direct, implicit-GEMM, Winograd
+and FFT kernels (with the FFT's complex products), data and weight
+gradients, and the FIR kernels (csrc/upfirdn2d.cu, whose names hold
+`depthwise`) where they resample.
+
+In a cell whose entry counts `filtered_lrelu_calls` (StyleGAN3's
+alias-free nonlinearity), the kernels named `upfirdn2d` are that
+nonlinearity's and are left out: `fir_ms_per_step` holds them there, so
+this reads the modulated convolutions alone whether or not the
+nonlinearity is fused. Naming rule: a kernel that fuses the nonlinearity
+has `filtered_lrelu` in its symbol and none of the words in CONV."""
 
 UNIT = "ms"
 CONV = ("conv", "implicit", "fprop", "dgrad", "wgrad", "winograd", "depthwise", "fft")
@@ -17,5 +25,6 @@ def is_conv(name: str) -> bool:
 
 
 def read(m):
-    seconds, n = m.slice.kernel_s(is_conv)
+    sg3 = hasattr(m.cell, "filtered_lrelu_calls")
+    seconds, n = m.slice.kernel_s(lambda k: is_conv(k) and not (sg3 and "upfirdn2d" in k))
     return 1e3 * seconds / m.slice.steps if n else None

@@ -1,7 +1,15 @@
 """The bias + activation kernels (csrc/bias_act.cu) against their least
 time: every forward and backward call of the slice's steps, counted from
 the layers' logical shapes (benchmark/counts), over the device time of the
-kernels of that name in the slice."""
+kernels of that name in the slice.
+
+Read only in a cell without StyleGAN3's alias-free nonlinearity (the EG3D
+cells). Where the entry counts `filtered_lrelu_calls`, most of the
+bias_act calls are the nonlinearity's own, and a kernel that fuses it
+(its symbol holds `filtered_lrelu`, not `bias_act`) would take their time
+out of this reader's denominator but not their work out of its
+numerator; `roofline.filtered_lrelu` reads that cell's bias_act calls
+whole, against both kernels."""
 
 from benchmark import counts
 
@@ -9,6 +17,8 @@ UNIT = "%"
 
 
 def read(m):
+    if hasattr(m.cell, "filtered_lrelu_calls"):
+        return None
     seconds, n = m.slice.kernel_s(lambda k: "bias_act" in k)
     if not n:
         return None

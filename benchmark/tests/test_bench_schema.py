@@ -50,6 +50,15 @@ def test_each_cell_has_its_files():
     assert "setup_s" in e2e and all(0 < m["bound"] <= 0.25 for m in e2e.values())
 
 
+def test_metric_workloads_name_cells():
+    """A per-layer metric's `workloads` list names cells, each once."""
+    b = bench()
+    cells = {w["name"] for w in b["workloads"]}
+    for m in b["per_layer"]:
+        listed = m.get("workloads", sorted(cells))
+        assert listed and set(listed) <= cells and len(set(listed)) == len(listed), m["name"]
+
+
 def test_a_dropped_cell_is_found(tmp_path, monkeypatch):
     """A new workload file under a copy of benchmark/ runs by its name."""
     root = tmp_path / "benchmark"

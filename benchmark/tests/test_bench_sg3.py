@@ -1,15 +1,16 @@
 """The StyleGAN3-T editing cell (`edit_sg3t_b2`) run whole at the
 configuration's test sizes on the CPU; its counts of work held to the
 published layers written out by hand and to the calls the port makes; its
-three readers on a made-up slice; and `correct` coming out false under
-the control and with half of the batch left out of the loss."""
+readers on made-up slices, with the alias-free nonlinearity as separate
+kernels and fused; and `correct` coming out false under the control and
+with half of the batch left out of the loss."""
 
 import argparse
 
 import pytest
 import torch
 
-from benchmark import harness, run
+from benchmark import counts, harness, run
 from benchmark.counts import stylegan3 as work
 from benchmark.harness import Ctx, check, load_module
 from benchmark.harness.trace import Slice
@@ -139,42 +140,134 @@ def test_calls_match_the_ports(monkeypatch):
 
 
 class _Cell:
-    """The counts a reader asks of a cell: one tiny layer's call a step."""
+    """The counts a reader asks of a cell: one tiny layer's call a step,
+    and `affine`, one bias_act call of the affines, if given."""
 
-    def __init__(self):
+    def __init__(self, affine=None):
         self.call = work.FilteredLReLU(1, 2, 10, 20, 10, 2, 12, 12, True)
+        self.affine = affine
 
     def filtered_lrelu_calls(self, it):
         return [self.call]
 
     def fc_bias_act_calls(self, it):
-        return []
+        return [self.affine] if self.affine else []
+
+
+class _EG3DCell:
+    """A cell without the nonlinearity: two bias_act calls a step."""
+
+    calls = [counts.BiasAct(4096, 64, "float32", True), counts.BiasAct(512, 512, "float32", False)]
+
+    def bias_act_calls(self, it):
+        return self.calls
+
+
+CONV_KERNEL = "sm80_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nchwkcrs_nchw"
 
 
 def _slice():
-    ops = [("upfirdn2d_sep_kernel", 0.0, 30.0, "kernel"), ("bias_act_fwd_kernel", 40.0, 10.0,
-                                                              "kernel"),
-           ("ampere_sgemm", 60.0, 100.0, "kernel"), ("upfirdn2d_sep_kernel", 200.0, 30.0, "kernel")]
+    """The nonlinearity as the port runs it today: two FIR kernels and
+    bias_act, beside a product and a convolution."""
+    ops = [("upfirdn2d_depthwise_sep_kernel", 0.0, 30.0, "kernel"),
+           ("bias_act_fwd_kernel", 40.0, 10.0, "kernel"), ("ampere_sgemm", 60.0, 100.0, "kernel"),
+           (CONV_KERNEL, 165.0, 20.0, "kernel"),
+           ("upfirdn2d_depthwise_sep_kernel", 200.0, 30.0, "kernel")]
     host = [("spi.step", 0.0, 150.0), ("spi.filtered_lrelu", 10.0, 20.0),
             ("spi.step", 160.0, 100.0), ("spi.filtered_lrelu", 170.0, 40.0),
             ("spi.filtered_lrelu", 300.0, 5.0)]  # the last outside any step
     return Slice(ops, host, 3e-4, [0, 1])
 
 
+def _fused_slice(cell, stretch=1.0):
+    """The nonlinearity as one kernel each way, each step's launches taking
+    `stretch` times the counted least time, and one bias_act launch a step
+    for the affines, at its least time; a product and a convolution."""
+    c = cell.call
+    fwd, bwd = (1e6 * stretch * t for t in (work.filtered_lrelu_fwd_s(c),
+                                             work.filtered_lrelu_bwd_s(c)))
+    affine = 1e6 * (counts.bias_act_fwd_s(cell.affine) + counts.bias_act_bwd_s(cell.affine))
+    ops = []
+    for t0 in (0.0, 200.0):
+        ops += [("filtered_lrelu_fwd_kernel", t0, fwd, "kernel"),
+                ("filtered_lrelu_bwd_kernel", t0 + 20.0, bwd, "kernel"),
+                ("bias_act_fwd_kernel", t0 + 40.0, affine, "kernel"),
+                ("ampere_sgemm", t0 + 60.0, 100.0, "kernel"), (CONV_KERNEL, t0 + 165.0, 20.0,
+                                                               "kernel")]
+    host = [("spi.step", 0.0, 190.0), ("spi.filtered_lrelu", 0.0, 15.0),
+            ("spi.step", 200.0, 190.0), ("spi.filtered_lrelu", 200.0, 15.0)]
+    return Slice(ops, host, 4e-4, [0, 1]), 2 * (fwd + bwd), 2 * affine
+
+
+def _m(cell, sl):
+    return argparse.Namespace(cell=cell, slice=sl, e2e={}, config={})
+
+
+def _reader(name):
+    return load_module("metrics", name).read
+
+
 def test_readers_on_a_slice():
-    m = argparse.Namespace(cell=_Cell(), slice=_slice(), e2e={}, config={})
-    read = {name: load_module("metrics", name).read for name in NEW}
+    m = _m(_Cell(), _slice())
+    read = {name: _reader(name) for name in NEW}
     assert read["fir_ms_per_step"](m) == pytest.approx(0.03)
     assert read["filtered_lrelu_host_ms_per_step"](m) == pytest.approx(0.03)
     least = 2 * (work.filtered_lrelu_fwd_s(m.cell.call) + work.filtered_lrelu_bwd_s(m.cell.call))
     assert read["roofline.filtered_lrelu"](m) == pytest.approx(100 * least / 70e-6)
     # A cell without the nonlinearity, and a slice without the spans, read nothing.
-    eg3d = argparse.Namespace(cell=object(), slice=_slice(), e2e={}, config={})
+    eg3d = _m(object(), _slice())
     assert read["fir_ms_per_step"](eg3d) is None
     assert read["roofline.filtered_lrelu"](eg3d) is None
     bare = Slice(_slice().device_ops, [("spi.step", 0.0, 150.0)], 3e-4, [0, 1])
-    assert read["filtered_lrelu_host_ms_per_step"](
-        argparse.Namespace(cell=_Cell(), slice=bare, e2e={}, config={})) is None
+    assert read["filtered_lrelu_host_ms_per_step"](_m(_Cell(), bare)) is None
+
+
+def test_conv_leaves_the_nonlinearitys_firs_out():
+    """In the SG3 cell the FIR kernels are `fir_ms_per_step`'s, and
+    `conv_ms_per_step` reads the convolution alone, on either slice; in a
+    cell without the nonlinearity they are resampling convolutions."""
+    conv = _reader("conv_ms_per_step")
+    cell = _Cell(counts.BiasAct(512, 512, "float32", True))
+    fused, _, _ = _fused_slice(cell)
+    assert conv(_m(cell, _slice())) == pytest.approx(0.01)
+    assert conv(_m(cell, fused)) == pytest.approx(0.02)
+    assert conv(_m(object(), _slice())) == pytest.approx(0.04)
+
+
+def test_readers_on_a_fused_slice():
+    """One `filtered_lrelu` kernel each way: the FIR reader reads the fused
+    kernels, `roofline.filtered_lrelu` the same least time over the fused
+    and bias_act kernels' time, and no roofline reads over 100% where the
+    fused kernels take at least their least time."""
+    cell = _Cell(counts.BiasAct(512, 512, "float32", True))
+    least = 2 * (work.filtered_lrelu_fwd_s(cell.call) + work.filtered_lrelu_bwd_s(cell.call)
+                 + counts.bias_act_fwd_s(cell.affine) + counts.bias_act_bwd_s(cell.affine))
+    for stretch in (1.0, 3.0):
+        sl, fused_us, affine_us = _fused_slice(cell, stretch)
+        m = _m(cell, sl)
+        assert _reader("fir_ms_per_step")(m) == pytest.approx(fused_us / 2e3)
+        share = _reader("roofline.filtered_lrelu")(m)
+        assert share == pytest.approx(100 * least / (1e-6 * (fused_us + affine_us)))
+        if stretch == 1.0:
+            assert share == pytest.approx(100.0, rel=1e-9)
+        for path in sorted((harness.ROOT / "metrics").glob("roofline.*.py")):
+            value = _reader(path.stem)(m)
+            assert value is None or value <= 100.0 * (1 + 1e-9), (path.stem, value)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_bias_act_roofline_is_the_eg3d_cells(fused):
+    """`roofline.bias_act` reads nothing in a cell that counts
+    `filtered_lrelu_calls`, and its arithmetic elsewhere is unchanged."""
+    read = _reader("roofline.bias_act")
+    cell = _Cell(counts.BiasAct(512, 512, "float32", True))
+    sl = _fused_slice(cell)[0] if fused else _slice()
+    assert read(_m(cell, sl)) is None
+    eg3d = _EG3DCell()
+    seconds, n = sl.kernel_s(lambda k: "bias_act" in k)
+    least = 2 * sum(counts.bias_act_fwd_s(c) + (counts.bias_act_bwd_s(c) if c.backward else 0.0)
+                    for c in eg3d.calls)
+    assert n and read(_m(eg3d, sl)) == pytest.approx(100 * least / seconds)
 
 
 def test_fault_half_batch(monkeypatch):
