@@ -20,7 +20,10 @@ Phases (any failure exits non-zero):
      upfirdn2d (row 8) forward, backward and double backward against
      upfirdn2d_plain at the callers' shapes (FIR_SHAPES), timed against its
      bytes bound, the plain version and ATen's depthwise convolution, and
-     under vmap (one launch); with
+     under vmap (one launch); the fused filtered_lrelu (row 9) forward (and
+     its packed signs) and backward against its plain versions and the
+     composition's kernels at StyleGAN3-T's largest layers (FLRELU_SHAPES),
+     timed against its bound and the composition; with
      --parent, time each such checkout's splat, win_scatter and
      row_scatter_add kernels in turns with this one on the same inputs;
   3. tiny_test_config synthesis forward and w / noise / weight gradients:
@@ -125,11 +128,12 @@ Phases (any failure exits non-zero):
      equal to PIL's decode), where native/libspi_io.so loads;
  23. StyleGAN3-T FFHQ-1024 at its published widths (22,315,239 entries),
      float32, batch 1, seeded: 3 forwards and backwards (the median s of
-     each after the first, peak memory, the bias_act launches of one
-     forward and one backward), the largest bias_act call's inputs kernel
-     against plain version bitwise, device ms by kind of one forward +
-     backward under torch.profiler (the FIR filters, the modulated
-     convolutions, bias_act), and one magnitude EMA renewed.
+     each after the first, peak memory, the launches of one forward and
+     one backward: one fused filtered_lrelu each way a layer, no upfirdn2d),
+     the largest bias_act call's inputs kernel against plain version
+     bitwise, device ms by kind of one forward + backward under
+     torch.profiler (the fused nonlinearity, the modulated convolutions,
+     bias_act), and one magnitude EMA renewed.
 Phase 2 also holds the splat, the lookup (f32 and bf16 planes, bitwise)
 and both bias_act kernels (f32 and bf16, a batched and a shared bias)
 under torch.func.vmap against their plain versions under the same vmap
@@ -1306,6 +1310,169 @@ def phase_upfirdn2d(dev):
                     "bound_by": b_by, "library_ms": ms["library forward"][0],
                     "library_device_ms": ms["library forward"][1]})
     return out
+
+
+# filtered_lrelu's shapes (row 9): (label, StyleGAN3-T FFHQ-1024 layer, x's
+# shape) at the editing cell's batch of 2: L10 (up 4, 24 taps: 534^2 ->
+# 2098^2 -> 1044^2), L11 (up 2, 12 taps: 1046^2 -> 2098^2 -> 1044^2) and the
+# identity ToRGB layer (no filters, slope 1, gain 1).
+FLRELU_SHAPES = (("L10", 10, (2, 81, 534, 534)), ("L11", 11, (2, 51, 1046, 1046)),
+                 ("ToRGB", 14, (2, 3, 1024, 1024)))
+# The fused kernels against their plain versions: float32 within TOL_FLRELU
+# of the largest entry (two FIRs in a row, each in other sums: the plain
+# version's 2-D taps are float32 roundings of the 1-D taps' products, its
+# convolution adds in its own order; against TOL_FIR's one FIR), against
+# the composition's kernels within TOL_FIR (the same separable sums in the
+# same order, but for db's reduction); a sign byte may
+# differ only where the plain u lies within TOL_SIGN of 0 (of its largest
+# entry) or lrelu(u) * gain within TOL_SIGN of the clamp (relative), where
+# the two sums round to either side.
+TOL_SIGN = 1e-5
+TOL_FLRELU = 4e-6
+
+
+def sg3_layer_args(dev, index):
+    """(fu, fd, up, down, padding, gain, slope, clamp) of StyleGAN3-T
+    FFHQ-1024's layer `index` (its filters on `dev`)."""
+    from spi_tpu_torch.models.stylegan3 import SG3SynthesisNetwork
+
+    net = SG3SynthesisNetwork(SG3_T["w_dim"], SG3_T["img_resolution"], SG3_T["img_channels"],
+                              device="cpu")
+    layer = getattr(net, net.layer_names[index])
+    fu, fd = (None if f is None else f.to(dev) for f in (layer.up_filter, layer.down_filter))
+    return (fu, fd, layer.up_factor, layer.down_factor, tuple(layer.padding),
+            1.0 if layer.is_torgb else math.sqrt(2.0), 1.0 if layer.is_torgb else 0.2,
+            float(layer.conv_clamp))
+
+
+def phase_filtered_lrelu(dev):
+    """Row 9: the fused filtered_lrelu kernels against their plain versions
+    on the card at FLRELU_SHAPES: the forward (output, and the packed
+    signs bitwise but at ties, TOL_SIGN), the backward from the kernel's
+    signs (dx and db) against `filtered_lrelu_bwd_plain` on the same
+    signs (TOL_FLRELU of the largest entry), and against autograd of
+    `filtered_lrelu_composed` (the two bias_act and two upfirdn2d kernels;
+    TOL_FIR). Then device-only and back-to-back ms of the kernels
+    (forward without and with signs; backward with the bias gradient)
+    against the bound (benchmark/counts' bytes and operations) and against
+    the composition's kernels, forward and backward."""
+    import importlib
+
+    import torch
+
+    from benchmark.counts import stylegan3 as counts
+    from spi_tpu_torch.ops import _lib
+    from spi_tpu_torch.tools.timing import device_ms
+
+    FL = importlib.import_module("spi_tpu_torch.ops.filtered_lrelu")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    worst = {"filtered_lrelu_fwd": 0.0, "filtered_lrelu_bwd": 0.0, "filtered_lrelu_bias_grad": 0.0}
+    rows = {}
+    for label, index, shape in FLRELU_SHAPES:
+        fu, fd, up, down, pad, gain, slope, clamp = sg3_layer_args(dev, index)
+        cfg = (up, down, pad, gain, slope)
+        # Scaled so that some values clamp.
+        x = torch.randn(*shape, device=dev, generator=gen) * 40.0
+        b = torch.randn(shape[1], device=dev, generator=gen)
+        _lib.reset_launch_counts()
+        y, signs = FL.filtered_lrelu_fwd_cuda(x, fu, fd, b, up, down, pad, gain, slope, clamp,
+                                              False, True)
+        check(_lib.launch_counts["filtered_lrelu_fwd"] == 1, f"filtered_lrelu {label}: no launch")
+        yp, sp = FL.filtered_lrelu_fwd_plain(x, fu, fd, b, up, down, pad, gain, slope, clamp,
+                                             False)
+        err_y = rel_err(y, yp)
+        differ = signs != sp
+        n_differ = int(differ.sum())
+        if n_differ:
+            u = FL.upfirdn2d_plain(x + b[None, :, None, None], fu, up=up, padding=pad,
+                                   gain=up**2)
+            v = torch.where(u >= 0, u, u * slope).abs() * gain
+            near = (u.abs() <= TOL_SIGN * float(u.abs().max())) | (
+                (v - clamp).abs() <= TOL_SIGN * clamp)
+            near = FL.pack_signs(near, near) != 0
+            check(bool((~differ | near).all()), f"filtered_lrelu {label}: sign bytes differ away "
+                                                "from a tie")
+            del u, v, near
+        del yp, sp, differ
+        dy = torch.randn(y.shape, device=dev, generator=gen)
+        dx, db = FL.filtered_lrelu_bwd_cuda(dy, signs, fu, fd, shape[2:], *cfg, False, True)
+        dxp, dbp = FL.filtered_lrelu_bwd_plain(dy, signs, fu, fd, shape[2:], *cfg, False)
+        err_dx, err_db = rel_err(dx, dxp), rel_err(db, dbp)
+        del dxp, dbp
+        xr, br = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        yc = FL.filtered_lrelu_composed(xr, fu, fd, br, up, down, pad, gain, slope, clamp, False)
+        dxc, dbc = torch.autograd.grad(yc, (xr, br), dy, retain_graph=True)
+        err_c = [rel_err(y, yc.detach()), rel_err(dx, dxc), rel_err(db, dbc)]
+        del dxc, dbc
+        log(f"filtered_lrelu {label} {shape} up {up} down {down}: kernel vs plain version, of the "
+            f"largest entry: y {err_y:.2e}, dx {err_dx:.2e}, db {err_db:.2e}; sign bytes "
+            f"differing at ties {n_differ} of {signs.numel()}; vs the composition's kernels "
+            f"(autograd): y {err_c[0]:.2e}, dx {err_c[1]:.2e}, db {err_c[2]:.2e} (tol "
+            f"{TOL_FLRELU}, {TOL_FIR})")
+        check(max(err_y, err_dx, err_db) <= TOL_FLRELU and max(err_c) <= TOL_FIR,
+              f"filtered_lrelu {label} disagrees")
+        worst["filtered_lrelu_fwd"] = max(worst["filtered_lrelu_fwd"], err_y)
+        worst["filtered_lrelu_bwd"] = max(worst["filtered_lrelu_bwd"], err_dx)
+        worst["filtered_lrelu_bias_grad"] = max(worst["filtered_lrelu_bias_grad"], err_db)
+        lib = _lib.lib()
+        tiles = lib.spi_filtered_lrelu_bwd_tiles(up, down, shape[2], shape[3])
+        part = torch.randn(shape[0] * shape[1] * tiles, device=dev, generator=gen)
+        dbk = torch.empty_like(b)
+        stream = _lib.stream_handle(dev)
+        fns = {
+            "kernel forward": lambda: FL.filtered_lrelu_fwd_cuda(x, fu, fd, b, *cfg, clamp, False,
+                                                                 False),
+            "kernel forward + signs": lambda: FL.filtered_lrelu_fwd_cuda(
+                x, fu, fd, b, *cfg, clamp, False, True),
+            "kernel backward + db": lambda: FL.filtered_lrelu_bwd_cuda(
+                dy, signs, fu, fd, shape[2:], *cfg, False, True),
+            "bias_grad kernel": lambda: lib.spi_filtered_lrelu_bias_grad(
+                part.data_ptr(), dbk.data_ptr(), shape[0], shape[1], tiles, stream),
+            "plain forward": lambda: FL.filtered_lrelu_fwd_plain(x, fu, fd, b, *cfg, clamp, False),
+            "composition forward": lambda: FL.filtered_lrelu_composed(
+                x, fu, fd, b, up, down, pad, gain, slope, clamp, False),
+            "composition backward": lambda: torch.autograd.grad(yc, (xr, br), dy,
+                                                                retain_graph=True),
+        }
+        ms = {k: (time_ms(fn), device_ms(fn)) for k, fn in fns.items()}
+        up_h = FL._sizes(shape[2], shape[3], FL.filter_size(fu), FL.filter_size(fd), up, down,
+                         pad)[0]
+        call = counts.FilteredLReLU(shape[0], shape[1], shape[2], up_h, y.shape[2], up,
+                                    FL.filter_size(fu)[0], FL.filter_size(fd)[0], True)
+        ops, fwd_by, bwd_by = counts.flops(call), counts.fwd_bytes(call), counts.bwd_bytes(call)
+        bounds = {"forward": bound_ms(fwd_by, ops), "backward": bound_ms(bwd_by, ops)}
+        log(f"filtered_lrelu {label}: bound forward {bounds['forward'][0]:.4f} ms "
+            f"({bounds['forward'][1]}, {ops / 1e9:.2f} GFLOP, {fwd_by / 1e6:.1f} MB), backward "
+            f"{bounds['backward'][0]:.4f} ms; " + ", ".join(
+                f"{k} {a:.4f} ms back-to-back, {d:.4f} device-only" + (
+                    f" ({100 * bounds['backward' if 'backward' in k else 'forward'][0] / d:.1f}% "
+                    "of the bound)" if k.startswith("kernel") else "")
+                for k, (a, d) in ms.items()))
+        rows[label] = (ms, bounds)
+        del x, b, y, signs, dy, dx, db, xr, br, yc, part, fns
+        torch.cuda.empty_cache()
+
+    ms, bounds = rows["L10"]
+    common = {"route": "cuda", "source": "spi_tpu_torch/csrc/filtered_lrelu.cu", "replaces": None,
+              "shape": "L10", "library_ms": None, "library_device_ms": None}
+    return [
+        {"name": "filtered_lrelu_fwd", **common, "max_abs_err": worst["filtered_lrelu_fwd"],
+         "ms": ms["kernel forward + signs"][0], "device_ms": ms["kernel forward + signs"][1],
+         "plain_ms": ms["plain forward"][0], "plain_device_ms": ms["plain forward"][1],
+         "composition_ms": ms["composition forward"][0],
+         "composition_device_ms": ms["composition forward"][1],
+         "bound_ms": bounds["forward"][0], "bound_by": bounds["forward"][1]},
+        {"name": "filtered_lrelu_bwd", **common, "max_abs_err": worst["filtered_lrelu_bwd"],
+         "ms": ms["kernel backward + db"][0], "device_ms": ms["kernel backward + db"][1],
+         "plain_ms": None, "plain_device_ms": None,
+         "composition_ms": ms["composition backward"][0],
+         "composition_device_ms": ms["composition backward"][1],
+         "bound_ms": bounds["backward"][0], "bound_by": bounds["backward"][1]},
+        {"name": "filtered_lrelu_bias_grad", **common,
+         "max_abs_err": worst["filtered_lrelu_bias_grad"], "ms": ms["bias_grad kernel"][0],
+         "device_ms": ms["bias_grad kernel"][1], "plain_ms": None, "plain_device_ms": None,
+         "bound_ms": None, "bound_by": None},
+    ]
 
 
 def phase_lookup_hvp(dev):
@@ -3521,7 +3688,11 @@ SG3_TINY = dict(z_dim=16, c_dim=0, w_dim=16, img_resolution=32, img_channels=3,
 # spi_tpu's SG3Generator defaults), phase 23.
 SG3_T = dict(z_dim=512, c_dim=0, w_dim=512, img_resolution=1024, img_channels=3)
 SG3_T_ENTRIES = 22_315_239  # parameters plus persistent buffers
-SG3_KERNELS = ("bias_act_fwd", "bias_act_bwd", "upfirdn2d")
+SG3_KERNELS = ("bias_act_fwd", "bias_act_bwd", "filtered_lrelu_fwd", "filtered_lrelu_bwd",
+               "filtered_lrelu_bias_grad")
+# The kernels of the composition the fused filtered_lrelu replaced: no SG3-T
+# layer launches them.
+SG3_UNFUSED = ("upfirdn2d",)
 
 
 def tiny_sg3(device):
@@ -3548,19 +3719,29 @@ def tiny_sg3(device):
 
 
 def phase_tiny_sg3(dev):
-    """The tiny SG3 generator on the card (the bias_act kernels in every
-    filtered_lrelu, affine and mapping layer) against the CPU (their plain
-    versions): the output and the gradients of z and every parameter to
-    TOL_SYNTH of each one's largest entry."""
+    """The tiny SG3 generator on the card (the fused filtered_lrelu kernels
+    in every layer, one forward and one backward a layer and the bias
+    gradient's, no upfirdn2d; bias_act in the affine and mapping layers)
+    against the CPU (the composition's plain versions): the output and the
+    gradients of z and every parameter to TOL_SYNTH of each one's largest
+    entry."""
     out_cpu, g_cpu, fwd_cpu, bwd_cpu = tiny_sg3("cpu")
     out, grads, fwd, bwd = tiny_sg3(dev)
     check(not any(fwd_cpu.values()) and not any(bwd_cpu.values()), "the CPU run launched kernels")
     check(fwd["bias_act_fwd"] > 0 and bwd["bias_act_bwd"] > 0,
           f"the tiny SG3 skipped a kernel: forward {fwd}, backward {bwd}")
+    layers = SG3_TINY.get("num_layers", 14) + 1
+    check(fwd["filtered_lrelu_fwd"] == layers and bwd["filtered_lrelu_bwd"] == layers
+          and bwd["filtered_lrelu_bias_grad"] == layers
+          and not any(fwd[k] or bwd[k] for k in SG3_UNFUSED),
+          f"the tiny SG3's {layers} layers did not each take the fused kernels: forward {fwd}, "
+          f"backward {bwd}")
     check(set(grads) == set(g_cpu), "the card and the CPU give gradients to other weights")
     errs = sorted(((rel_err(grads[k], g_cpu[k]), k) for k in g_cpu), reverse=True)
     out_err = rel_err(out, out_cpu)
-    log(f"tiny SG3: launches forward {fwd['bias_act_fwd']} bias_act_fwd, backward "
+    log(f"tiny SG3: launches forward {fwd['filtered_lrelu_fwd']} filtered_lrelu_fwd, "
+        f"{fwd['bias_act_fwd']} bias_act_fwd, backward {bwd['filtered_lrelu_bwd']} "
+        f"filtered_lrelu_bwd, {bwd['filtered_lrelu_bias_grad']} filtered_lrelu_bias_grad, "
         f"{bwd['bias_act_bwd']} bias_act_bwd; card vs CPU, error relative to max |ref|: output "
         f"{out_err:.2e}, {len(errs)} gradients, the worst "
         + ", ".join(f"{k} {e:.2e}" for e, k in errs[:4]) + f" (tol {TOL_SYNTH})")
@@ -3799,7 +3980,7 @@ def phase_sg3(dev, runs=3):
     after the first, the peak memory, the launches of one forward and one
     backward), the largest bias_act call's inputs kernel against plain
     version bitwise (KernelInputs), one forward + backward under
-    torch.profiler (device ms by kind: the FIR filters' upfirdn2d kernels,
+    torch.profiler (device ms by kind: the fused filtered_lrelu kernels,
     the modulated convolutions, bias_act), and last one
     magnitude EMA renewed (update_emas) against its rule on the layer's
     input. Returns the launches of one forward + backward."""
@@ -3854,11 +4035,19 @@ def phase_sg3(dev, runs=3):
         f"{[round(t, 5) for t in fwd_s]} s, backward {[round(t, 5) for t in bwd_s]} s; median "
         f"after the first: forward {fwd_med:.5f} s, backward {bwd_med:.5f} s; peak device "
         f"memory {peak:.3f} GiB")
-    log(f"SG3-T launches: one forward {fwd_n['bias_act_fwd']} bias_act_fwd ("
-        f"{2 * (len(g.synthesis.layer_names))} in the {len(g.synthesis.layer_names)} layers' "
-        f"filtered_lrelu), one backward {bwd_n['bias_act_bwd']} bias_act_bwd; all {launches}")
+    layers = len(g.synthesis.layer_names)
+    log(f"SG3-T launches: one forward {fwd_n['filtered_lrelu_fwd']} filtered_lrelu_fwd (one in "
+        f"each of the {layers} layers) and {fwd_n['bias_act_fwd']} bias_act_fwd (the affines "
+        f"and the mapping), one backward {bwd_n['filtered_lrelu_bwd']} filtered_lrelu_bwd, "
+        f"{bwd_n['filtered_lrelu_bias_grad']} filtered_lrelu_bias_grad and "
+        f"{bwd_n['bias_act_bwd']} bias_act_bwd; all {launches}")
     for k in SG3_KERNELS:
         check(launches[k] > 0, f"kernel {k} was never launched on the SG3 path")
+    check(fwd_n["filtered_lrelu_fwd"] == layers and bwd_n["filtered_lrelu_bwd"] == layers,
+          f"SG3-T: {fwd_n['filtered_lrelu_fwd']} / {bwd_n['filtered_lrelu_bwd']} fused "
+          f"filtered_lrelu launches a pass, not one in each of the {layers} layers")
+    check(not any(launches[k] for k in SG3_UNFUSED),
+          f"SG3-T launched the composition's kernels: {[(k, launches[k]) for k in SG3_UNFUSED]}")
     del y
 
     with KernelInputs() as rec:
@@ -3885,7 +4074,9 @@ def phase_sg3(dev, runs=3):
     kinds = {}
     for name, (t, _) in per_kernel.items():
         low = name.lower()
-        if "bias_act" in low:
+        if "filtered_lrelu" in low:
+            kind = "alias-free nonlinearity (the fused filtered_lrelu kernels)"
+        elif "bias_act" in low:
             kind = "bias_act kernels"
         elif "depthwise" in low:  # upfirdn2d_depthwise_* (ATen's conv_depthwise2d before)
             kind = "FIR filters (the upfirdn2d kernel)"
@@ -3961,7 +4152,7 @@ def main(argv=None) -> int:
         *phase_bias_act_bf16(dev),
         phase_win_scatter(dev, args.parent),
         phase_row_gather(dev), phase_row_scatter_add(dev, args.parent),
-        *phase_upfirdn2d(dev)])
+        *phase_upfirdn2d(dev), *phase_filtered_lrelu(dev)])
     phase(2, "kernels under vmap", phase_vmap_kernels, dev)
     phase(2, "Hessian-vector product through the lookup", phase_lookup_hvp, dev)
     phase(3, "tiny synthesis card vs CPU", phase_tiny_synthesis, dev)

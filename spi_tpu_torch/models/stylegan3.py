@@ -13,7 +13,9 @@ up and down FIR filters are non-persistent buffers computed from the
 configuration. `forward(..., update_emas=True)` renews each layer's
 `magnitude_ema` in place from its input before using it, as EG3D does
 (spi_tpu's functional `updated_magnitude_ema`). The nonlinearity is
-`ops.filtered_lrelu` (the bias_act and upfirdn2d kernels). Float32.
+`ops.filtered_lrelu` (on a card its fused kernel, csrc/filtered_lrelu.cu,
+for every layer of the 1-D filters; the bias_act and upfirdn2d kernels for
+radial ones). Float32.
 `SG3SynthesisNetwork.forward` opens the `spi.synthesis` span.
 
 `stylegan3_t_ffhq1024()` and `tiny_stylegan3()` give `SG3Generator`'s

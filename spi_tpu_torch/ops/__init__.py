@@ -5,7 +5,10 @@ every resampling convolution) and `sample_planes`'s lookup forward and
 splat backward; everything else on it is plain PyTorch. The probe
 kernels `win_scatter` (ops/win_scatter.py) and `row_gather` /
 `row_scatter_add` (ops/gather_scatter.py) serve the probe tools.
-`filtered_lrelu` (StyleGAN3) is composed of `bias_act` and `upfirdn2d`.
+`filtered_lrelu` (StyleGAN3) is one fused kernel each way on a card
+(csrc/filtered_lrelu.cu) for the 1-D filters and factors of StyleGAN3-T,
+and the composition of `bias_act` and `upfirdn2d` otherwise (2-D filters,
+other dtypes or factors, CPU tensors).
 """
 
 from spi_tpu_torch.ops.bias_act import activation_funcs, bias_act

@@ -34,14 +34,16 @@ NVCC_FLAGS = [
 
 KERNELS = ("plane_splat", "plane_sample", "plane_sample_bf16", "bias_act_fwd", "bias_act_bwd",
            "bias_act_grad2", "bias_act_fwd_bf16", "bias_act_bwd_bf16", "win_scatter",
-           "row_gather", "row_scatter_add", "upfirdn2d", "upfirdn2d_bf16")
+           "row_gather", "row_scatter_add", "upfirdn2d", "upfirdn2d_bf16", "filtered_lrelu_fwd",
+           "filtered_lrelu_bwd", "filtered_lrelu_bias_grad")
 launch_counts: dict[str, int] = {k: 0 for k in KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
-# C signatures: every function returns cudaGetLastError() after its launch.
+# C signatures: every function returns cudaGetLastError() after its launch
+# (spi_filtered_lrelu_bwd_tiles, which launches nothing, a count).
 _SIGNATURES = {
     "spi_plane_splat": [_P, _P, _P, *[_I] * 11, _F, _P],
     "spi_plane_sample": [_P, _P, _P, *[_I] * 5, _F, _P],
@@ -57,6 +59,10 @@ _SIGNATURES = {
     "spi_row_scatter_add_atomic": [_P, _P, _P, _I, _I, _I, _P],
     "spi_upfirdn2d": [_P, _P, _P, *[_I] * 16, _F, _P],
     "spi_upfirdn2d_bf16": [_P, _P, _P, *[_I] * 16, _F, _P],
+    "spi_filtered_lrelu_fwd": [*[_P] * 6, *[_I] * 13, _F, _F, _F, _P],
+    "spi_filtered_lrelu_bwd": [*[_P] * 6, *[_I] * 12, _F, _F, _P],
+    "spi_filtered_lrelu_bwd_tiles": [_I] * 4,
+    "spi_filtered_lrelu_bias_grad": [_P, _P, _I, _I, _I, _P],
 }
 
 _lib = None
