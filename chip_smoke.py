@@ -31,10 +31,9 @@ Phases (any failure exits non-zero):
      versions, same weights, same injected random draws, in float32 and
      in bfloat16;
   4. stage-1 'sg' projection at full ffhq512_128_config width (random
-     seeded weights), a few steps, with every kernel's launch count, in
-     turns float32, bfloat16, bfloat16, float32;
-  5. one more 'sg' step under torch.profiler in each dtype: the card's
-     time by kernel and by kind of kernel, and its busy share of a step;
+     seeded weights), a few steps, with every kernel's launch count, and
+     one more 'sg' step under torch.profiler, which must run no ATen
+     depthwise convolution: float32 then bfloat16;
   6. stage-1 'mir' projection at full width from a yawed camera (two
      cameras rendered from one set of planes), float32 then bfloat16;
   7. stage-2 recon-only tuning at full width from phase 4's w and noise,
@@ -42,8 +41,9 @@ Phases (any failure exits non-zero):
   8. the probe tools (spi_tpu_torch/tools), each run once;
   9. SPI's RotBbox stage 2 at full width from phase 4's w and noise, from
      a yawed camera with a synthetic face mask and landmarks: the
-     regularizer steps' and the reconstruction steps' times and launches,
-     and one regularizer step under torch.profiler, float32 then bfloat16;
+     regularizer steps' and the reconstruction steps' launches, and one
+     regularizer step under torch.profiler (no ATen depthwise
+     convolution), float32 then bfloat16;
  10. the inversion CLI end to end at full width on a synthetic identity
      written under build/ (both stages, SPI's RotBbox weights), its output
      tree, and a second run that reuses the first one's embedding: with
@@ -60,18 +60,15 @@ Phases (any failure exits non-zero):
      files, 8 finite 512^2 frames, a non-empty mesh and PLY, the frames a
      second and the shape's seconds (device probes, host marching
      tetrahedra), and the launches of one orbit chunk and one probe chunk;
- 13. the benchmark line (spi_tpu_torch/tools/bench.py, bfloat16, the
-     pipeline sample cut to 4 'mir' + 8 RotBbox steps): bench.py's metric
-     string and finite positive numbers; the launches of one stage-1 step
-     and one stage-2 cadence;
  14. several images a step (parallel.spmd_invert): two images at full
      width in float32, 2 'mir' + 5 RotBbox steps, batched against one by
      one with the same per-image generators (w, LPIPS, steps, a tuned
      leaf), then with a threshold one of them reaches early;
- 15. per-image seconds a step, peak memory and launches a step at B = 1,
-     2, 4 through the batched path ('sg' and a RotBbox cadence, float32
-     and bfloat16; a cell that does not fit the card is reported), the
-     launches equal to B = 1's, and the device-busy share at B = 4;
+ 15. launches a step at B = 1, 2, 4 through the batched path ('sg' and a
+     RotBbox cadence, float32 and bfloat16; a cell that does not fit the
+     card is reported), which must equal B = 1's, and no ATen depthwise
+     convolution in a profiled B = 4 step ('sg' in each dtype, a bf16
+     RotBbox regularizer step);
  16. the inversion CLI with --parallel_images 4 on four synthetic
      identities in bfloat16;
  17. --dataset_block auto in two processes on the card (gloo, the
@@ -80,14 +77,13 @@ Phases (any failure exits non-zero):
  18. CLIP-guided editing at full width in float32: twin ffhq512_128_config
      generators and ViT-B/32 + ViT-B/16 at their published widths (seeded
      random weights), batch 2, the CLI's defaults (direction term only, the
-     stand-in tokenizer): build_states' seconds, 6 ZSSGAN steps (median
-     s/step after the second, peak GiB, launches a step of the splat and
-     both bias_act kernels, which each step launches: the forward in both
-     renders and the mapping, the backward and the splat in the trainable
-     render's backward), only the masked leaves moved, the frozen twin
-     bitwise unchanged, finite losses; one more step under torch.profiler
-     (device time by kind, CLIP's softmax and LayerNorm apart, and the
-     busy share); one --ide3d step, which must move ToRGB;
+     stand-in tokenizer): build_states' seconds, 6 ZSSGAN steps (launches
+     a step of the splat and both bias_act kernels, which each step
+     launches: the forward in both renders and the mapping, the backward
+     and the splat in the trainable render's backward), only the masked
+     leaves moved, the frozen twin bitwise unchanged, finite losses; one
+     more step under torch.profiler (no ATen depthwise convolution); one
+     --ide3d step, which must move ToRGB;
  19. the editing CLIs: cli/run_editing.py --random_init at full width (3
      steps, sample grids at steps 0 and 2, a final.npz with every generator
      key that loads into the port's TriPlaneGenerator; the splat and both
@@ -102,12 +98,10 @@ Phases (any failure exits non-zero):
      does not fit, said on its own line), the ADA pipe at p = 0.2, a
      synthetic 512^2 batch at the canonical camera: 6 steps (step 0 with
      lazy R1 and density TV, step 4 with density TV) and a warm R1 step;
-     seconds by kind of step, peak memory, launches a step (the splat and
-     both bias_act kernels in both dtypes, and no second-order launch:
-     D's activations are lrelu and linear), finite losses, every parameter
-     that gets a gradient moved, G_ema moved less than G; a plain and an R1
-     step under torch.profiler (device time by kind, the float32
-     convolutions' share, the busy share); then each kernel on the
+     launches a step (the splat and both bias_act kernels in both dtypes,
+     and no second-order launch: D's activations are lrelu and linear),
+     finite losses, every parameter that gets a gradient moved, G_ema
+     moved less than G; then each kernel on the
      inputs of its largest call in an R1 + TV step (the splat's coarse
      pass, D's float32 bias_act forward and backward and the backward as
      R1's second order, G's bf16 forms) against its plain version, at
@@ -127,13 +121,13 @@ Phases (any failure exits non-zero):
      (TOL_SYNTH); then data/native_loader.py on the host (a prefetch batch
      equal to PIL's decode), where native/libspi_io.so loads;
  23. StyleGAN3-T FFHQ-1024 at its published widths (22,315,239 entries),
-     float32, batch 1, seeded: 3 forwards and backwards (the median s of
-     each after the first, peak memory, the launches of one forward and
-     one backward: one fused filtered_lrelu each way a layer, no upfirdn2d),
-     the largest bias_act call's inputs kernel against plain version
-     bitwise, device ms by kind of one forward + backward under
-     torch.profiler (the fused nonlinearity, the modulated convolutions,
-     bias_act), and one magnitude EMA renewed.
+     float32, batch 1, seeded: a forward and a backward (finite, and the
+     launches of each: one fused filtered_lrelu each way a layer, no
+     upfirdn2d), the largest bias_act call's inputs kernel against plain
+     version bitwise, and one magnitude EMA renewed.
+There is no phase 5 or 13; the other phases keep the numbers that the
+port's comments cite. Steps of the port are timed by benchmark/run.py
+alone: this script checks the port on the card and times its kernels.
 Phase 2 also holds the splat, the lookup (f32 and bf16 planes, bitwise)
 and both bias_act kernels (f32 and bf16, a batched and a shared bias)
 under torch.func.vmap against their plain versions under the same vmap
@@ -160,14 +154,12 @@ renderer draws), which launches the splat and both bias_act kernels: the
 loss and every trained leaf's gradient and value to TOL_SYNTH, every other
 leaf bitwise unchanged on both.
 
-Each path (phases 3, 4, 6, 7, 9, 10, 12-23 and each tool) runs with the launch
-counts set to 0 just before it and fails unless each kernel it is meant
-to launch was launched: a bfloat16 path the bias_act kernels' and the
-lookup's bf16 forms. The lookup runs once a render pass: 2 a 'sg',
-'mir' or recon-only step, 10 a RotBbox regularizer step, 4 a plain GAN
-step and 6 one with density TV; each profile prints the
-`vectorized_gather_kernel` time that remains (the kernel of PyTorch's
-gather that ran the lookup before).
+Each path (phases 3, 4, 6, 7, 9, 10, 12, 14-23 and each tool) runs with
+the launch counts set to 0 just before it and fails unless each kernel
+it is meant to launch was launched: a bfloat16 path the bias_act
+kernels' and the lookup's bf16 forms. The lookup runs once a render
+pass: 2 a 'sg', 'mir' or recon-only step, 10 a RotBbox regularizer step,
+4 a plain GAN step and 6 one with density TV.
 Prints the card's name and power limit, one `{"kernels": [...]}` line
 (the bf16 forms' launches from the bfloat16 'sg' run, the second-order
 form's from phase 20, each kernel's launches in a plain GAN step as
@@ -185,8 +177,7 @@ import subprocess
 import sys
 import time
 
-from spi_tpu_torch.tools.step_time import device_kernels  # fails outside a checkout
-from spi_tpu_torch.tools.timing import bound_ms, time_ms
+from spi_tpu_torch.tools.timing import bound_ms, time_ms  # fails outside a checkout
 
 TOL_SPLAT = 1e-4     # relative to max |ref|: f32 atomics add in run-dependent order
 TOL_SCATTER = 1e-5   # relative to max |ref|: the probes' f32 atomics add in any order
@@ -811,8 +802,7 @@ def phase_win_scatter(dev, parents=()):
     edge cases, each in f32 and bf16: a crowded window, every other tile
     dead, windows overhanging the table, and ragged tiles (2,500 points,
     12 channels). Each parent checkout's kernel is timed in turns with
-    this one at the six probe shapes. The reductions alone, without the
-    sums' bytes, and a block's time by phase: tools/winscatter_pace.py."""
+    this one at the six probe shapes."""
     import torch
 
     from spi_tpu_torch.ops.gather_scatter import row_scatter_add_cuda
@@ -1634,7 +1624,7 @@ def tiny_rotbbox_step(device, dtype="float32"):
     from spi_tpu_torch.models import TriPlaneGenerator, tiny_test_config
     from spi_tpu_torch.models.rendering.renderer import draw_randoms
     from spi_tpu_torch.ops import _lib
-    from spi_tpu_torch.tools.step_time import synthetic_face
+    from spi_tpu_torch.tools.workloads import synthetic_face
     from spi_tpu_torch.training import coaches
     from spi_tpu_torch.utils import camera as cam
     from spi_tpu_torch.utils.params import trainable_parameters
@@ -1789,46 +1779,76 @@ def phase_tiny_zssgan(dev):
 
 
 def drive(label, kernels, fn):
-    """Run `fn(on_step)` (a workload of spi_tpu_torch/tools/step_time.py)
-    with every launch count at 0 and the peak memory reset just before it;
-    each step is stamped. Fails unless each of `kernels` was launched.
-    Returns (fn's result, launch counts, each step's launches (step 0's
-    with the set-up's), each step's s after the first, median s/step after
-    the second)."""
+    """Run `fn(on_step)` (a workload of spi_tpu_torch/tools/workloads.py)
+    with every launch count at 0 just before it; the counts are read after
+    each step. Fails unless each of `kernels` was launched. Returns (fn's
+    result, launch counts, each step's launches (step 0's with the
+    set-up's))."""
+    import torch
+
     from spi_tpu_torch.ops import _lib
     from spi_tpu_torch.ops import plane_splat as ps
-    from spi_tpu_torch.tools.step_time import steady_s, time_steps
 
     counts = []
     copies = dict(ps.contiguous_copies)
     _lib.reset_launch_counts()
-    result, first_s, step_s, peak = time_steps(
-        fn, lambda: counts.append(dict(_lib.launch_counts)))
+    result = fn(lambda step, value: counts.append(dict(_lib.launch_counts)))
+    torch.cuda.synchronize()
     launches = dict(_lib.launch_counts)
     log(f"{label}: strided inputs the lookup copied: "
         f"{ {k: v - copies[k] for k, v in ps.contiguous_copies.items()} }")
-    steady = steady_s(step_s)
     steps = [{k: c[k] - (counts[i - 1][k] if i else 0) for k in launches}
              for i, c in enumerate(counts)]
-    log(f"{label}: {len(counts)} steps, first step {first_s:.4f} s, then "
-        f"{[round(t, 5) for t in step_s]} s; median after the second {steady:.5f} s/step")
-    log(f"{label}: peak device memory {peak / 2**30:.3f} GiB")
-    log(f"{label}: launches {launches}; in the last step {steps[-1]}")
+    log(f"{label}: {len(counts)} steps; launches {launches}; in the last step {steps[-1]}")
     for k in kernels:
         check(launches[k] > 0, f"kernel {k} was never launched on the {label} path")
-    return result, launches, steps, step_s, steady
+    return result, launches, steps
+
+
+def device_kernels(prof):
+    """{kernel name: (device ms, launches)} of a torch.profiler run: the
+    events on the card with device time, less user annotations and the
+    profiler's own step markers. Raises where there is none."""
+    import torch
+
+    per_kernel = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = getattr(evt, "self_cuda_time_total", 0.0)
+        if (t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)
+                and "#" not in evt.key and not evt.key.startswith("ProfilerStep")):
+            per_kernel[evt.key] = (t / 1e3, evt.count)
+    if not per_kernel:
+        raise RuntimeError("the profiler saw no device time")
+    return per_kernel
+
+
+def check_no_depthwise(label, fn, wait):
+    """Run the workload `fn(on_step)` under torch.profiler and keep its step
+    number `wait` + 1 (after `wait` steps and one warm-up step); fail where
+    ATen's depthwise convolution ran in it: every generator FIR is the
+    upfirdn2d kernel."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=wait, warmup=1, active=1)) as prof:
+        fn(lambda step, value: prof.step())
+    depthwise = [n for name, (_, n) in device_kernels(prof).items() if "conv_depthwise2d" in name]
+    check(not depthwise, f"{label}: ATen's depthwise convolution ran ({sum(depthwise)} launches)")
 
 
 def build_model(dev, dtype="float32"):
-    """step_time's workload: ffhq512_128_config at its published widths and
+    """The workloads' model: ffhq512_128_config at its published widths and
     compute dtype `dtype`, random seeded weights; LPIPS-VGG16; a random
     512^2 target; the canonical camera."""
     import torch
 
-    from spi_tpu_torch.tools import step_time
+    from spi_tpu_torch.tools import workloads
 
     t0 = time.perf_counter()
-    model = step_time.build_model(dev, dtype)
+    model = workloads.build_model(dev, dtype)
     torch.cuda.synchronize()
     log(f"ffhq512_128 {dtype}: {sum(p.numel() for p in model[0].parameters())} generator "
         f"parameters, built in {time.perf_counter() - t0:.1f} s")
@@ -1848,99 +1868,25 @@ def check_projection(g, label, w, noise, dists):
 
 def phase_project(dev, model, dtype="float32"):
     """Stage-1 'sg' projection at full FFHQ-512 width, in compute dtype
-    `dtype` (`model`'s). Returns (w, noise), the launch counts of the run
-    and the median step time (s) of the steps after the second."""
-    from spi_tpu_torch.tools.step_time import PIVOT_STEPS, projection
+    `dtype` (`model`'s); then the third of three more 'sg' steps under
+    torch.profiler, which must run no ATen depthwise convolution. Returns
+    (w, noise) and the launch counts of the run."""
+    from spi_tpu_torch.tools.workloads import PIVOT_STEPS, projection
 
     label = "sg project" + tag(dtype)
-    (w, noise, dists), launches, steps, _, steady = drive(
+    (w, noise, dists), launches, steps = drive(
         label, PATH_KERNELS[dtype], projection(model, "sg", PIVOT_STEPS, dev))
     check_projection(model[0], label, w, noise, dists)
     check_lookups(label, steps[-1], dtype, 2)
-    return (w, noise), launches, steady
-
-
-# Kernel name fragments -> the kind of work, for phase 5's breakdown. cuDNN's
-# FFT convolutions run as fft2d_* kernels around complex (float2) products.
-# A convolution or matmul kernel whose name carries a tensor-core or
-# half-width type fragment (TENSOR_CORE) counts as its own kind.
-CONV_OR_MATMUL = ("conv", "implicit", "wgrad", "dgrad", "gemm", "gemv", "xmma", "cutlass", "fft")
-TENSOR_CORE = ("bf16", "f16", "tf32", "s16816", "s1688", "hmma", "gmma", "tensorop", "wmma")
-KINDS = (
-    ("plane_splat", "splat kernel"), ("plane_sample", "plane sample kernel"),
-    ("bias_act", "bias_act kernels"), ("upfirdn2d", "upfirdn2d kernel"),
-    ("softmax", "softmax (CLIP attention)"), ("layer_norm", "layer norm (CLIP)"),
-    ("fft", "convolution (FFT)"), ("float2", "convolution (FFT)"),
-    ("conv", "convolution"), ("implicit", "convolution"), ("wgrad", "convolution"),
-    ("dgrad", "convolution"), ("gemm", "matmul"), ("gemv", "matmul"),
-    ("index", "gather/scatter"), ("gather", "gather/scatter"), ("scatter", "gather/scatter"),
-    ("sort", "sort"), ("reduce", "reduction"), ("scan", "scan (cumsum/cumprod)"),
-    ("elementwise", "elementwise"), ("vectorized", "elementwise"), ("memset", "memset/copy"),
-    ("memcpy", "memset/copy"), ("copy", "memset/copy"),
-)
-
-
-def profile_step(label, fn, wait, steady_s, of_what, aten_depthwise=False):
-    """Run the workload `fn(on_step)` under torch.profiler and keep its step
-    number `wait` + 1 (after `wait` steps and one warm-up step): device time
-    by kernel and by kind, and its share of `steady_s`, an unprofiled step
-    time (the profiler's own overhead stretches the profiled step's wall
-    time). Fails where ATen's depthwise convolution ran, unless
-    `aten_depthwise` (the discriminator's FIRs, ops/gradfix.py): every
-    generator FIR is the upfirdn2d kernel. Returns ({kind: device ms},
-    total device ms)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=wait, warmup=1, active=1)) as prof:
-        fn(lambda step, value: prof.step())
-    per_kernel = device_kernels(prof)
-    total = sum(t for t, _ in per_kernel.values())
-    kinds = {}
-    for name, (t, _) in per_kernel.items():
-        low = name.lower()
-        kind = next((k for frag, k in KINDS if frag in low), "other")
-        if (kind not in ("splat kernel", "plane sample kernel", "bias_act kernels",
-                         "upfirdn2d kernel")
-                and any(f in low for f in CONV_OR_MATMUL) and any(f in low for f in TENSOR_CORE)):
-            kind = "convolution/matmul on tensor cores"
-        kinds[kind] = kinds.get(kind, 0.0) + t
-    launches = sum(n for _, n in per_kernel.values())
-    log(f"profile: one {label}, device time {total:.3f} ms in {len(per_kernel)} kernels, "
-        f"{launches} launches")
-    for kind, t in sorted(kinds.items(), key=lambda kv: -kv[1]):
-        log(f"profile kind {kind:24s} {t:10.3f} ms  {100 * t / total:5.1f}%")
-    for name, (t, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:25]:
-        log(f"profile kernel {t:10.3f} ms {n:6d}x  {name[:110]}")
-    log(f"profile: device busy {100 * total / (steady_s * 1e3):.1f}% of a {label} (device time "
-        f"over {of_what} {steady_s * 1e3:.3f} ms)")
-    # The kernel PyTorch's index_select ran the triplane lookup on before
-    # its own kernel; what of it remains on a path.
-    gather = [(t, n) for name, (t, n) in per_kernel.items() if "vectorized_gather_kernel" in name]
-    log(f"profile: vectorized_gather_kernel {sum(t for t, _ in gather):.3f} ms in "
-        f"{sum(n for _, n in gather)} launches of a {label}")
-    # ATen's depthwise convolution ran the FIR filters before the upfirdn2d kernel.
-    depthwise = [(t, n) for name, (t, n) in per_kernel.items() if "conv_depthwise2d" in name]
-    log(f"profile: conv_depthwise2d {sum(t for t, _ in depthwise):.3f} ms in "
-        f"{sum(n for _, n in depthwise)} launches of a {label}")
-    check(aten_depthwise or not depthwise, f"{label}: ATen's depthwise convolution ran")
-    return kinds, total
-
-
-def phase_profile(dev, model, steady_s, dtype="float32"):
-    """The third of three 'sg' steps under torch.profiler, against phase 4's
-    median step time (of the same dtype)."""
-    from spi_tpu_torch.tools.step_time import projection
-
-    profile_step(f"'sg'{tag(dtype)} step", projection(model, "sg", 3, dev, seed=9), 1, steady_s,
-                 f"phase 4's median{tag(dtype)} step time")
+    check_no_depthwise(f"'sg'{tag(dtype)} step", projection(model, "sg", 3, dev, seed=9), 1)
+    return (w, noise), launches
 
 
 def phase_mir(dev, model, num_steps=4, dtype="float32"):
     """Stage-1 'mir' projection at full width from a yawed camera, so that
     the mirror term's weight is nonzero. Both cameras render from one set
     of planes, so each render pass's splat serves both in one launch."""
-    from spi_tpu_torch.tools.step_time import MIR_YAW, projection
+    from spi_tpu_torch.tools.workloads import MIR_YAW, projection
     from spi_tpu_torch.utils import camera as cam
 
     camera = cam.canonical_camera(yaw=MIR_YAW, device=dev)
@@ -1948,14 +1894,13 @@ def phase_mir(dev, model, num_steps=4, dtype="float32"):
     log(f"mir project: yaw {MIR_YAW}, mirror weight {weight:.5f}")
     check(weight > 0, "the mirror term has no weight at this camera")
     label = "mir project" + tag(dtype)
-    (w, noise, dists), _, steps, _, steady = drive(
+    (w, noise, dists), _, steps = drive(
         label, PATH_KERNELS[dtype], projection(model, "mir", num_steps, dev))
     per_step = steps[-1]
     check_projection(model[0], label, w, noise, dists)
     check(per_step["plane_splat"] == 2,
           f"mir: {per_step['plane_splat']} splat launches a step, not one per render pass")
     check_lookups(label, per_step, dtype, 2)
-    return steady
 
 
 def phase_tune(dev, model, pivot, num_steps=6, dtype="float32"):
@@ -1964,13 +1909,13 @@ def phase_tune(dev, model, pivot, num_steps=6, dtype="float32"):
     it early."""
     import torch
 
-    from spi_tpu_torch.tools.step_time import tuning
+    from spi_tpu_torch.tools.workloads import tuning
     from spi_tpu_torch.utils.params import trainable_parameters
 
     g = model[0]
     before = {k: p.detach().clone() for k, p in trainable_parameters(g).items()}
     label = "stage-2 tune" + tag(dtype)
-    (_, (steps, last_lpips)), _, step_launches, _, steady = drive(
+    (_, (steps, last_lpips)), _, step_launches = drive(
         label, PATH_KERNELS[dtype], tuning(model, pivot, num_steps, dev))
     per_step = step_launches[-1]
     after = trainable_parameters(g)
@@ -1981,24 +1926,21 @@ def phase_tune(dev, model, pivot, num_steps=6, dtype="float32"):
     check(steps == num_steps and math.isfinite(last_lpips), "stage 2 stopped early or diverged")
     check(finite and moved > 0, "the tuned weights are not finite or did not move")
     check_lookups(label, per_step, dtype, 2)
-    return steady, per_step
 
 
 def phase_rotbbox(dev, model, pivot, num_steps=9, dtype="float32"):
     """SPI's RotBbox stage 2 at full width from phase 4's w and noise
-    (step_time.rotbbox: rot 0.1, mirror-rot 0.05, depth 1 from the camera
+    (workloads.rotbbox: rot 0.1, mirror-rot 0.05, depth 1 from the camera
     yawed by MIR_YAW, synthetic face mask and landmarks). Steps 0, 4 and 8
-    carry the regularizers; 4 and 8 are timed apart from the
-    reconstruction-only steps after the first. A regularizer step's
-    backward splats 8 passes (recon, rot, mirror and the tuned depth
-    render, coarse and fine), a reconstruction step's 2; the lookup runs
-    in 10 passes and 2 (the original generator's depth render, two passes
-    under no_grad, has no backward)."""
-    import statistics
-
+    carry the regularizers. A regularizer step's backward splats 8 passes
+    (recon, rot, mirror and the tuned depth render, coarse and fine), a
+    reconstruction step's 2; the lookup runs in 10 passes and 2 (the
+    original generator's depth render, two passes under no_grad, has no
+    backward). Then one regularizer step under torch.profiler, which must
+    run no ATen depthwise convolution."""
     import torch
 
-    from spi_tpu_torch.tools.step_time import MIR_YAW, rotbbox
+    from spi_tpu_torch.tools.workloads import MIR_YAW, rotbbox
     from spi_tpu_torch.utils import camera as cam
     from spi_tpu_torch.utils.params import trainable_parameters
 
@@ -2007,7 +1949,7 @@ def phase_rotbbox(dev, model, pivot, num_steps=9, dtype="float32"):
     g = model[0]
     before = {k: p.detach().clone() for k, p in trainable_parameters(g).items()}
     label = "rotbbox tune" + tag(dtype)
-    (_, (steps, last_lpips)), _, step_launches, step_s, _ = drive(
+    (_, (steps, last_lpips)), _, step_launches = drive(
         label, PATH_KERNELS[dtype], rotbbox(model, pivot, num_steps, dev))
     after = trainable_parameters(g)
     finite = all(bool(torch.isfinite(p).all()) for p in after.values())
@@ -2015,14 +1957,8 @@ def phase_rotbbox(dev, model, pivot, num_steps=9, dtype="float32"):
     del before
     reg = [k for k in range(2, num_steps) if k % 4 == 0]
     rec = [k for k in range(2, num_steps) if k % 4]
-    reg_s = [step_s[k - 1] for k in reg]
-    rec_s = [step_s[k - 1] for k in rec]
     log(f"{label}: {steps} steps, last LPIPS {last_lpips:.6f}; mirror weight "
         f"{weight:.5f}; weights finite {finite}, {moved} of {len(after)} weight tensors moved")
-    log(f"{label}: regularizer steps {reg} {[round(t, 5) for t in reg_s]} s (median "
-        f"{statistics.median_high(reg_s):.5f}); reconstruction steps {rec} "
-        f"{[round(t, 5) for t in rec_s]} s (median {statistics.median_high(rec_s):.5f}); "
-        f"mean over steps 1-{num_steps - 1} {sum(step_s) / len(step_s):.5f} s/step")
     log(f"{label}: launches in regularizer step {reg[0]} {step_launches[reg[0]]}, in "
         f"reconstruction step {rec[0]} {step_launches[rec[0]]}")
     check(steps == num_steps and math.isfinite(last_lpips), "RotBbox stopped early or diverged")
@@ -2035,10 +1971,7 @@ def phase_rotbbox(dev, model, pivot, num_steps=9, dtype="float32"):
         check(step_launches[k]["plane_splat"] == 2,
               f"rotbbox step {k}: {step_launches[k]['plane_splat']} splat launches, not 2")
         check_lookups(f"rotbbox step {k}", step_launches[k], dtype, 2)
-    reg_median, rec_median = statistics.median_high(reg_s), statistics.median_high(rec_s)
-    profile_step(f"RotBbox{tag(dtype)} regularizer step", rotbbox(model, pivot, 5, dev), 3,
-                 reg_median, "this phase's median regularizer step time")
-    return reg_median, rec_median
+    check_no_depthwise(f"RotBbox{tag(dtype)} regularizer step", rotbbox(model, pivot, 5, dev), 3)
 
 
 def write_identity(root, name, seed=0, yaw=None):
@@ -2051,7 +1984,7 @@ def write_identity(root, name, seed=0, yaw=None):
     import torch
     from PIL import Image
 
-    from spi_tpu_torch.tools.step_time import MIR_YAW, synthetic_face
+    from spi_tpu_torch.tools.workloads import MIR_YAW, synthetic_face
     from spi_tpu_torch.utils import camera as cam
 
     for sub in ("crop", "c", "mask", "lm"):
@@ -2171,7 +2104,7 @@ def phase_preprocess(dev):
     from spi_tpu_torch.models.perception.fan import FAN
     from spi_tpu_torch.ops import _lib
     from spi_tpu_torch.preprocess.pipeline import PreprocessModels, run_total
-    from spi_tpu_torch.tools.step_time import write_photo
+    from spi_tpu_torch.tools.workloads import write_photo
 
     def recon_with_heads(device):
         net = FaceReconNet(device=device, seed=1)
@@ -2330,53 +2263,6 @@ def phase_user_path(dev, data, first_steps=3, tune_steps=5):
     warm = time.perf_counter() - t0
     log(f"orbit, 16 frames with the generator warm: {warm:.3f} s ({16 / warm:.2f} frames/s)")
     return res
-
-
-def phase_bench(dev, s1_steps=4, s2_steps=8):
-    """`python -m spi_tpu_torch.tools.bench` in bfloat16 with a shortened
-    pipeline sample, in this process: its last line is one JSON object with
-    bench.py's metric string and finite positive times. Then the launches
-    of one stage-1 step and of one stage-2 cadence (steps 1-4, the fourth
-    a regularizer step), read between the steps' `on_step` calls so that
-    the loops' set-up stays out."""
-    import contextlib
-    import io
-    import re
-    from pathlib import Path
-
-    from spi_tpu_torch.ops import _lib
-    from spi_tpu_torch.tools import bench
-    from spi_tpu_torch.tools.step_time import build_model
-
-    metric = re.search(r'"metric": "([^"]+)"',
-                       (Path(__file__).resolve().parent / "bench.py").read_text()).group(1)
-    buf = io.StringIO()
-    _lib.reset_launch_counts()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        bench.main(["--dtype", "bfloat16", "--s1_steps", str(s1_steps),
-                    "--s2_steps", str(s2_steps)])
-    wall = time.perf_counter() - t0
-    text = buf.getvalue()
-    log(text.rstrip())
-    launches = dict(_lib.launch_counts)
-    line = json.loads(text.strip().splitlines()[-1])
-    log(f"bench: {wall:.1f} s; launches {launches}")
-    check(line["metric"] == metric, f"bench metric {line['metric']!r} is not bench.py's")
-    check("vs_baseline" not in line and line["unit"] == "s", f"bench line {line}")
-    d = line["detail"]
-    nums = [line["value"], d["stage1_s_per_step"], d["stage2_s_per_step"], d["pipeline_scaled_s"]]
-    check(all(math.isfinite(v) and v > 0 for v in nums), f"bench numbers {nums}")
-    for k in BF16_KERNELS:
-        check(launches[k] > 0, f"kernel {k} was never launched by the benchmark")
-    model = build_model(dev, "bfloat16", lpips_dtype="bfloat16")
-    for label, workload, n in (("stage-1 step", bench.stage1, 1),
-                               ("stage-2 cadence", bench.stage2, 4)):
-        snaps = []
-        workload(model, n + 1, dev)(lambda step, value: snaps.append(dict(_lib.launch_counts)))
-        per = {k: snaps[-1][k] - snaps[0][k] for k in snaps[0] if snaps[-1][k] > snaps[0][k]}
-        log(f"bench launches of one {label} (step{'s 1-4' if n > 1 else ' 1'}): {per}")
-    return line
 
 
 def phase_tools(dev):
@@ -2602,19 +2488,19 @@ def phase_batched_vs_serial(dev, b=2, first_steps=2, tune_steps=5):
     from spi_tpu_torch.criteria.bbox_cx import BoxCXLoss
     from spi_tpu_torch.ops import _lib
     from spi_tpu_torch.parallel import spmd_invert
-    from spi_tpu_torch.tools import step_time
+    from spi_tpu_torch.tools import workloads
     from spi_tpu_torch.training import coaches, projectors
     from spi_tpu_torch.utils.params import index_tree, trainable_parameters
 
     model = build_model(dev)
     g, lpips = model[0], model[1]
-    targets, cameras = step_time.batch_inputs(model, b, dev, step_time.MIR_YAW)
+    targets, cameras = workloads.batch_inputs(model, b, dev, workloads.MIR_YAW)
     res = g.cfg.img_resolution
     yy, xx = torch.meshgrid(*(torch.linspace(0, 1, res, device=dev),) * 2, indexing="ij")
     blob = torch.exp(-((xx - 0.5) ** 2 + (yy - 0.45) ** 2) / 0.05)
     targets[1] = torch.stack([0.6 + 0.3 * blob, 0.45 + 0.25 * blob, 0.4 + 0.2 * blob])[None] \
         * 2 - 1
-    mask, lm = step_time.synthetic_face(dev, res)
+    mask, lm = workloads.synthetic_face(dev, res)
     masks, lms = mask[None].expand(b, *mask.shape), lm[None].expand(b, *lm.shape)
     box = BoxCXLoss(device=dev)
     proj = projectors.ProjectorSettings(mode="mir", num_steps=first_steps, w_avg_samples=600)
@@ -2694,17 +2580,16 @@ def phase_batched_vs_serial(dev, b=2, first_steps=2, tune_steps=5):
     torch.cuda.empty_cache()
 
 
-def phase_batch_timing(dev, steps=5):
-    """Per-image seconds a step and peak memory at B = 1, 2, 4 through the
-    batched path, float32 and bfloat16: 'sg' (median after the second
-    step, over B) and a RotBbox cadence of 4 steps (steps 1-4, the fourth a
-    regularizer step, summed, over 4 B), with each batched step's launches,
-    which must equal B = 1's. A cell that does not fit the card's memory is
-    reported as such. Then the device-busy share at B = 4 (profile_step) of
-    a 'sg' step in each dtype and of a bf16 RotBbox regularizer step."""
+def phase_batch_launches(dev, steps=5):
+    """Launches a step at B = 1, 2, 4 through the batched path, float32 and
+    bfloat16: 'sg' (the last step) and a RotBbox cadence of 4 steps (steps
+    1-4, the fourth a regularizer step, summed), which must equal B = 1's.
+    A cell that does not fit the card's memory is reported as such. Then a
+    B = 4 'sg' step in each dtype and a bf16 B = 4 RotBbox regularizer step
+    under torch.profiler, which must run no ATen depthwise convolution."""
     import torch
 
-    from spi_tpu_torch.tools import step_time
+    from spi_tpu_torch.tools import workloads
 
     table = {}
     for dtype in ("float32", "bfloat16"):
@@ -2712,56 +2597,40 @@ def phase_batch_timing(dev, steps=5):
         pivot = None
         for b in (1, 2, 4):
             label = f"batched 'sg' B={b}{tag(dtype)}"
-            (w, noise, _), _, per_step, step_s, steady = drive(
-                label, PATH_KERNELS[dtype], step_time.projection_batch(model, "sg", steps, dev, b))
-            peak = torch.cuda.max_memory_allocated()
-            table[(dtype, "sg", b)] = (steady / b, peak, per_step[-1])
+            (w, noise, _), _, per_step = drive(
+                label, PATH_KERNELS[dtype], workloads.projection_batch(model, "sg", steps, dev, b))
+            table[(dtype, "sg", b)] = per_step[-1]
             if pivot is None:
                 pivot = (w[0], {k: v[0] for k, v in noise.items()})
             label = f"batched RotBbox B={b}{tag(dtype)}"
             try:
-                _, _, per_step, step_s, _ = drive(
-                    label, PATH_KERNELS[dtype], step_time.rotbbox_batch(model, pivot, steps, dev, b))
+                _, _, per_step = drive(
+                    label, PATH_KERNELS[dtype], workloads.rotbbox_batch(model, pivot, steps, dev, b))
             except torch.cuda.OutOfMemoryError as e:
                 log(f"{label}: out of device memory ({str(e).splitlines()[0][:160]})")
                 table[(dtype, "rotbbox", b)] = None
                 torch.cuda.empty_cache()
                 continue
-            peak = torch.cuda.max_memory_allocated()
             cadence = {k: sum(s[k] for s in per_step[1:5]) for k in per_step[1]}
             fir = "upfirdn2d" + ("_bf16" if dtype == "bfloat16" else "")
             log(f"{label}: {cadence[fir]} {fir} launches in one RotBbox cadence (steps 1-4), "
                 f"{per_step[4][fir]} in its regularizer step")
-            table[(dtype, "rotbbox", b)] = (sum(step_s[:4]) / (4 * b), peak, cadence)
+            table[(dtype, "rotbbox", b)] = cadence
             torch.cuda.empty_cache()
         for path in ("sg", "rotbbox"):
             one = table[(dtype, path, 1)]
             for b in (2, 4):
                 cell = table[(dtype, path, b)]
                 if cell is not None:
-                    check(cell[2] == one[2], f"{path}{tag(dtype)} B={b}: launches {cell[2]} "
-                          f"differ from B=1's {one[2]}")
-        sg4 = table[(dtype, "sg", 4)][0] * 4
-        step_time_b4 = step_time.projection_batch(model, "sg", 3, dev, 4)
-        profile_step(f"batched 'sg'{tag(dtype)} step, B=4", step_time_b4, 1, sg4,
-                     "this phase's median B=4 step time")
+                    check(cell == one, f"{path}{tag(dtype)} B={b}: launches {cell} "
+                          f"differ from B=1's {one}")
+        check_no_depthwise(f"batched 'sg'{tag(dtype)} step, B=4",
+                           workloads.projection_batch(model, "sg", 3, dev, 4), 1)
         if dtype == "bfloat16" and table[(dtype, "rotbbox", 4)] is not None:
-            reg = step_time.rotbbox_batch(model, pivot, 5, dev, 4)
-            _, _, _, step_s, _ = drive(f"batched RotBbox B=4{tag(dtype)} (again)",
-                                       PATH_KERNELS[dtype], reg)
-            profile_step(f"batched RotBbox{tag(dtype)} regularizer step, B=4",
-                         step_time.rotbbox_batch(model, pivot, 5, dev, 4), 3, step_s[3],
-                         "its step 4 in an unprofiled run")
+            check_no_depthwise(f"batched RotBbox{tag(dtype)} regularizer step, B=4",
+                               workloads.rotbbox_batch(model, pivot, 5, dev, 4), 3)
         del model, pivot
         torch.cuda.empty_cache()
-    log("per image at B = 1, 2, 4 (s a step per image; peak GiB; launches a step or a cadence):")
-    for (dtype, path, b), cell in table.items():
-        if cell is None:
-            log(f"  {dtype:8s} {path:7s} B={b}: out of device memory")
-        else:
-            log(f"  {dtype:8s} {path:7s} B={b}: {cell[0]:.5f} s/step/image, peak "
-                f"{cell[1] / 2**30:.3f} GiB, launches {cell[2]}")
-    return table
 
 
 def phase_cli_batched(dev, n=4, first_steps=3, tune_steps=5):
@@ -2904,10 +2773,10 @@ def phase_editing(dev, num_steps=6):
     """CLIP-guided editing at full width in float32, the CLI's defaults:
     twin ffhq512_128_config generators and ViT-B/32 + ViT-B/16 at their
     published widths (seeded random weights), batch 2, the direction term
-    only, the stand-in tokenizer. `num_steps` steps timed with the launch
-    counts from 0; only the masked leaves move, the frozen twin is bitwise
-    unchanged, the losses are finite. One more step profiled; one IDE3D
-    step moves ToRGB."""
+    only, the stand-in tokenizer. `num_steps` steps with the launch counts
+    from 0; only the masked leaves move, the frozen twin is bitwise
+    unchanged, the losses are finite. One more step under torch.profiler
+    runs no ATen depthwise convolution; one IDE3D step moves ToRGB."""
     import zlib
 
     import torch
@@ -2947,7 +2816,7 @@ def phase_editing(dev, num_steps=6):
             on_step(i, values[-1])
         return [float(v) for v in values]
 
-    values, launches, per_step, _, steady = drive(
+    values, launches, per_step = drive(
         "editing", INVERSION_KERNELS, lambda on_step: steps(num_steps, on_step))
     check(all(math.isfinite(v) for v in values), f"editing losses {values}")
     moved = {k for k, v in trainer.trainable.state_dict().items() if not torch.equal(v, start[k])}
@@ -2957,8 +2826,7 @@ def phase_editing(dev, num_steps=6):
           "editing: the frozen twin moved")
     log(f"editing: losses {values}; {len(moved)} of {len(trainer.mask)} masked leaves moved "
         f"(the rest are noise_const buffers); launches a step {per_step[-1]}")
-    profile_step("editing step", lambda on_step: steps(3, on_step), 1, steady,
-                 "this phase's median step time")
+    check_no_depthwise("editing step", lambda on_step: steps(3, on_step), 1)
     ide3d = IDE3DZSSGANTrainer(frozen, losses, weights, EditingSettings(), device=dev, seed=3)
     ide3d.states = states
     torgb = {k: v.clone() for k, v in ide3d.trainable.state_dict().items()
@@ -2968,7 +2836,6 @@ def phase_editing(dev, num_steps=6):
     torgb_moved = [k for k, v in torgb.items() if not torch.equal(after[k], v)]
     log(f"editing --ide3d: loss {value:.6f}; {len(torgb_moved)} of {len(torgb)} ToRGB leaves moved")
     check(math.isfinite(value) and torgb_moved, "editing --ide3d: ToRGB did not move")
-    return steady
 
 
 def phase_editing_clis(dev, iters=3, frames=8, size=1024):
@@ -3293,28 +3160,21 @@ def gan_trainer(dev, batch):
     return tr, real, c
 
 
-def gan_steps(tr, real, c, counts, on_step=None):
+def gan_steps(tr, real, c, counts):
     """One step at each of `counts` (the trainer's step number, which picks
-    the regularizers); each timed after a device sync, with its launches.
-    Returns [(s, launches, metrics)]."""
+    the regularizers), with its launches. Returns [(launches, metrics)]."""
     import torch
 
     from spi_tpu_torch.ops import _lib
 
     out = []
-    for i, n in enumerate(counts):
+    for n in counts:
         tr.step_count = n
         z = torch.randn(real.shape[0], tr.generator.z_dim, device=real.device, generator=tr.rng)
         before = dict(_lib.launch_counts)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         m = tr.step(real, z, c, GAN_P)
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0, {k: _lib.launch_counts[k] - before[k]
-                                               for k in before},
+        out.append(({k: _lib.launch_counts[k] - before[k] for k in before},
                     {k: float(v) for k, v in m.items()}))
-        if on_step is not None:
-            on_step(i, out[-1][0])
     return out
 
 
@@ -3466,16 +3326,12 @@ def phase_gan(dev):
     """GAN training at full width (run_gan_training's model, its default batch
     of GAN_BATCH; if that does not fit the card, 4, EG3D's per-GPU batch): 6
     steps, step 0 with R1 and density TV (cold), step 4 with density TV, then
-    one more R1 + TV step warm (step number 16); each step's seconds and
-    launches, the peak memory; finite losses, every parameter of D and G
-    that gets a gradient moved (the superresolution's noise strengths get
-    none: its noise mode is 'none'), G_ema moved less than G; then a plain
-    step and an R1 + TV step under torch.profiler (device time by kind,
-    busy share); last, each kernel at the largest shape an R1 + TV step
-    gives it against its plain version (KernelInputs). Returns (the
-    kernels' launches in a plain step, {kind of step: s})."""
-    import statistics
-
+    one more R1 + TV step warm (step number 16); each step's launches;
+    finite losses, every parameter of D and G that gets a gradient moved
+    (the superresolution's noise strengths get none: its noise mode is
+    'none'), G_ema moved less than G; last, each kernel at the largest
+    shape an R1 + TV step gives it against its plain version
+    (KernelInputs). Returns the kernels' launches in a plain step."""
     import torch
 
     from spi_tpu_torch.ops import _lib
@@ -3484,7 +3340,6 @@ def phase_gan(dev):
         tr, real, c = gan_trainer(dev, batch)
         start = {w: {k: p.detach().clone() for k, p in mod.named_parameters()}
                  for w, mod in (("g", tr.generator), ("d", tr.discriminator))}
-        torch.cuda.reset_peak_memory_stats()
         _lib.reset_launch_counts()
         return tr, real, c, start, gan_steps(tr, real, c, [0, 1, 2, 3, 4, 5, 16])
 
@@ -3497,26 +3352,20 @@ def phase_gan(dev):
         batch = 4
         tr, real, c, start, steps = run(batch)
     launches = dict(_lib.launch_counts)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    for i, (s, n, m) in enumerate(steps):
-        log(f"GAN batch {batch} step {i}: {s:.4f} s, metrics {m}, launches "
+    for i, (n, m) in enumerate(steps):
+        log(f"GAN batch {batch} step {i}: metrics {m}, launches "
             + ", ".join(f"{k} {v}" for k, v in n.items() if v))
         check(all(math.isfinite(v) for v in m.values()), f"GAN step {i}: a loss is not finite")
     for k in GAN_KERNELS:
         check(launches[k] > 0, f"kernel {k} was never launched on the GAN path")
     check(launches["bias_act_grad2"] == 0, "D's lrelu / linear launched the second-order kernel")
-    kinds = {"R1 + density TV, cold (step 0)": steps[0][0], "R1 + density TV": steps[6][0],
-             "density TV": steps[4][0],
-             "plain": statistics.median([steps[i][0] for i in (1, 2, 3, 5)])}
-    log(f"GAN batch {batch} seconds a step: " + ", ".join(f"{k} {v:.4f}" for k, v in kinds.items())
-        + f"; peak device memory {peak:.3f} GiB")
-    check(steps[0][1]["bias_act_bwd"] > steps[1][1]["bias_act_bwd"],
+    check(steps[0][0]["bias_act_bwd"] > steps[1][0]["bias_act_bwd"],
           "the R1 step launched no more float32 backward kernels than a plain step")
-    log(f"GAN launches a step: plain {steps[1][1]}; R1 + TV {steps[6][1]}; TV {steps[4][1]}")
+    log(f"GAN launches a step: plain {steps[1][0]}; R1 + TV {steps[6][0]}; TV {steps[4][0]}")
     # Two renders a step (D's fakes under no_grad, G's), two passes each;
     # density TV samples two point sets more.
     for i, kind, n in ((1, "plain", 4), (4, "density TV", 6), (6, "R1 + density TV", 6)):
-        check_lookups(f"GAN {kind} step", steps[i][1], "bfloat16", n)
+        check_lookups(f"GAN {kind} step", steps[i][0], "bfloat16", n)
     moved = {}
     for w, mod in (("g", tr.generator), ("d", tr.discriminator)):
         still = [k for k, p in mod.named_parameters() if torch.equal(p.detach(), start[w][k])]
@@ -3531,24 +3380,6 @@ def phase_gan(dev):
         f"gradient and stayed: {moved['g']}")
     check(0 < d_ema < d_g, "G_ema did not move less than G")
 
-    def plain_steps(on_step):
-        gan_steps(tr, real, c, [17, 18, 19], on_step)
-
-    kinds_ms, total = profile_step(f"plain GAN step (batch {batch})", plain_steps, 1,
-                                   kinds["plain"], "phase 20's median plain step time",
-                                   aten_depthwise=True)
-    f32_conv = sum(t for k, t in kinds_ms.items() if k in ("convolution", "convolution (FFT)"))
-    log(f"GAN plain step: float32 convolutions (D; G computes in bf16 on tensor cores) "
-        f"{f32_conv:.3f} ms, {100 * f32_conv / total:.1f}% of the device time, "
-        f"{100 * f32_conv / (kinds['plain'] * 1e3):.1f}% of the step")
-
-    def r1_steps(on_step):  # two plain steps, then an R1 + density TV one
-        gan_steps(tr, real, c, [33, 34, 48], on_step)
-
-    profile_step(f"R1 + density TV GAN step (batch {batch})", r1_steps, 1,
-                 kinds["R1 + density TV"], "phase 20's warm R1 + TV step time",
-                 aten_depthwise=True)
-
     # The kernels at the shapes this path gives them, against their plain
     # versions: one more R1 + density TV step records each wrapper's
     # largest call.
@@ -3562,7 +3393,7 @@ def phase_gan(dev):
     errs = check_kernel_inputs(rec.calls, rec.originals, "GAN")
     log("GAN kernel inputs, max abs err against the plain versions: "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-    return steps[1][1], kinds
+    return steps[1][0]
 
 
 def phase_gan_cli(dev, n_images=16):
@@ -3974,20 +3805,14 @@ def phase_native_loader():
         "PIL's decode; the bad file marked")
 
 
-def phase_sg3(dev, runs=3):
+def phase_sg3(dev):
     """StyleGAN3-T FFHQ-1024 at its published widths, float32, batch 1,
-    seeded weights: `runs` forwards and backwards (the median s of each
-    after the first, the peak memory, the launches of one forward and one
-    backward), the largest bias_act call's inputs kernel against plain
-    version bitwise (KernelInputs), one forward + backward under
-    torch.profiler (device ms by kind: the fused filtered_lrelu kernels,
-    the modulated convolutions, bias_act), and last one
-    magnitude EMA renewed (update_emas) against its rule on the layer's
-    input. Returns the launches of one forward + backward."""
-    import statistics
-
+    seeded weights: a forward and a backward (finite, and the launches of
+    each), the largest bias_act call's inputs kernel against plain version
+    bitwise (KernelInputs), and last one magnitude EMA renewed
+    (update_emas) against its rule on the layer's input. Returns the
+    launches of one forward + backward."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
 
     from spi_tpu_torch.models.stylegan3 import SG3Generator
     from spi_tpu_torch.ops import _lib
@@ -4006,35 +3831,16 @@ def phase_sg3(dev, runs=3):
         (y * r).sum().backward()
         return y
 
-    fwd_s, bwd_s, fwd_n, bwd_n = [], [], {}, {}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     _lib.reset_launch_counts()
-    for _ in range(runs):
-        g.zero_grad(set_to_none=True)
-        before = dict(_lib.launch_counts)
-        t0 = time.perf_counter()
-        y = g(z, None)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        mid = dict(_lib.launch_counts)
-        (y * r).sum().backward()
-        torch.cuda.synchronize()
-        fwd_s.append(t1 - t0)
-        bwd_s.append(time.perf_counter() - t1)
-        fwd_n = {k: mid[k] - before[k] for k in mid}
-        bwd_n = {k: v - mid[k] for k, v in _lib.launch_counts.items()}
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    y = g(z, None)
+    fwd_n = dict(_lib.launch_counts)
+    (y * r).sum().backward()
+    bwd_n = {k: v - fwd_n[k] for k, v in _lib.launch_counts.items()}
     launches = {k: fwd_n[k] + bwd_n[k] for k in fwd_n}
     check(tuple(y.shape) == (1, 3, res, res) and bool(torch.isfinite(y).all()),
           "SG3-T output not finite or of the wrong shape")
     check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
               for p in g.parameters()), "SG3-T: a parameter gradient is missing or not finite")
-    fwd_med, bwd_med = statistics.median(fwd_s[1:]), statistics.median(bwd_s[1:])
-    log(f"SG3-T FFHQ-1024 (float32, batch 1, {entries} entries): forward "
-        f"{[round(t, 5) for t in fwd_s]} s, backward {[round(t, 5) for t in bwd_s]} s; median "
-        f"after the first: forward {fwd_med:.5f} s, backward {bwd_med:.5f} s; peak device "
-        f"memory {peak:.3f} GiB")
     layers = len(g.synthesis.layer_names)
     log(f"SG3-T launches: one forward {fwd_n['filtered_lrelu_fwd']} filtered_lrelu_fwd (one in "
         f"each of the {layers} layers) and {fwd_n['bias_act_fwd']} bias_act_fwd (the affines "
@@ -4061,37 +3867,6 @@ def phase_sg3(dev, runs=3):
     log("SG3-T kernel inputs, max abs err against the plain versions: "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     check(all(v == 0 for v in errs.values()), f"SG3-T: a float32 bias_act call is not bitwise {errs}")
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=1, warmup=1, active=1)) as prof:
-        for _ in range(3):
-            fwd_bwd()
-            torch.cuda.synchronize()  # the active step holds one pass's kernels alone
-            prof.step()
-    g.zero_grad(set_to_none=True)
-    per_kernel = device_kernels(prof)
-    total = sum(t for t, _ in per_kernel.values())
-    kinds = {}
-    for name, (t, _) in per_kernel.items():
-        low = name.lower()
-        if "filtered_lrelu" in low:
-            kind = "alias-free nonlinearity (the fused filtered_lrelu kernels)"
-        elif "bias_act" in low:
-            kind = "bias_act kernels"
-        elif "depthwise" in low:  # upfirdn2d_depthwise_* (ATen's conv_depthwise2d before)
-            kind = "FIR filters (the upfirdn2d kernel)"
-        elif any(f in low for f in CONV_OR_MATMUL):
-            kind = "convolution / matmul (the modulated convolutions, affines, mapping)"
-        else:
-            kind = next((k for frag, k in KINDS if frag in low), "other")
-        kinds[kind] = kinds.get(kind, 0.0) + t
-    log(f"SG3-T profile: one forward + backward, device time {total:.3f} ms in "
-        f"{len(per_kernel)} kernels, busy {100 * total / ((fwd_med + bwd_med) * 1e3):.1f}% of "
-        f"the median forward + backward {(fwd_med + bwd_med) * 1e3:.3f} ms")
-    for kind, t in sorted(kinds.items(), key=lambda kv: -kv[1]):
-        log(f"SG3-T profile kind {kind:70s} {t:10.3f} ms  {100 * t / total:5.1f}%")
-    for name, (t, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]:
-        log(f"SG3-T profile kernel {t:10.3f} ms {n:6d}x  {name[:110]}")
 
     name = g.synthesis.layer_names[10]
     layer = getattr(g.synthesis, name)
@@ -4160,66 +3935,48 @@ def main(argv=None) -> int:
     phase(3, "tiny ZSSGAN step card vs CPU", phase_tiny_zssgan, dev)
     phase(3, "tiny GAN step (R1, density TV) card vs CPU", phase_tiny_gan, dev)
     phase(3, "tiny StyleGAN3 forward and backward card vs CPU", phase_tiny_sg3, dev)
-    # 'sg' in turns, float32, bf16, bf16, float32; the first run of each
-    # gives the pivot and the launch counts.
-    runs = {"float32": [], "bfloat16": []}
-    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
-        runs[dtype].append(phase(4, f"sg projection {dtype}", phase_project, dev,
-                                 models[dtype], dtype))
-    res = {}
+    # The 'sg' run of each dtype gives the pivot and the launch counts.
+    pivots, launches = {}, {}
     for dtype, m in models.items():
-        (pivot, launches, _), (_, _, sg_again) = runs[dtype]
-        sg_s = runs[dtype][0][2]
-        phase(5, f"profile {dtype}", phase_profile, dev, m, sg_s, dtype)
-        res[dtype] = {"pivot": pivot, "launches": launches, "sg": (sg_s, sg_again)}
+        pivots[dtype], launches[dtype] = phase(4, f"sg projection {dtype}", phase_project, dev,
+                                               m, dtype)
     for dtype, m in models.items():
-        res[dtype]["mir"] = phase(6, f"mir projection {dtype}", phase_mir, dev, m, 4, dtype)
+        phase(6, f"mir projection {dtype}", phase_mir, dev, m, 4, dtype)
     for dtype, m in models.items():
-        res[dtype]["tune"] = phase(7, f"stage-2 tuning {dtype}", phase_tune, dev, m,
-                                   res[dtype]["pivot"], 6, dtype)[0]
+        phase(7, f"stage-2 tuning {dtype}", phase_tune, dev, m, pivots[dtype], 6, dtype)
     phase(8, "probe tools", phase_tools, dev)
     for dtype, m in models.items():
-        res[dtype]["rotbbox"] = phase(9, f"RotBbox tuning {dtype}", phase_rotbbox, dev, m,
-                                      res[dtype]["pivot"], 9, dtype)
+        phase(9, f"RotBbox tuning {dtype}", phase_rotbbox, dev, m, pivots[dtype], 9, dtype)
     for dtype in models:
         phase(10, f"inversion CLI {dtype}", phase_cli, dev, dtype)
-    del models, model, runs
+    del models, model, pivots
     torch.cuda.empty_cache()
     data = phase(11, "preprocess", phase_preprocess, dev)
     phase(12, "inversion --save_video and run_video on the preprocessed tree",
           phase_user_path, dev, data)
-    phase(13, "benchmark line", phase_bench, dev)
     torch.cuda.empty_cache()
     phase(14, "batched against serial, float32", phase_batched_vs_serial, dev)
-    phase(15, "batched step time and memory at B = 1, 2, 4", phase_batch_timing, dev)
+    phase(15, "batched launches at B = 1, 2, 4", phase_batch_launches, dev)
     phase(16, "inversion CLI --parallel_images 4", phase_cli_batched, dev)
     phase(17, "two processes, --dataset_block auto", phase_two_processes, dev)
     torch.cuda.empty_cache()
-    edit_s = phase(18, "CLIP-guided editing at full width, float32", phase_editing, dev)
+    phase(18, "CLIP-guided editing at full width, float32", phase_editing, dev)
     torch.cuda.empty_cache()
     phase(19, "the editing CLIs", phase_editing_clis, dev)
     torch.cuda.empty_cache()
-    gan_launches, gan_s = phase(20, "GAN training at full width", phase_gan, dev)
+    gan_launches = phase(20, "GAN training at full width", phase_gan, dev)
     torch.cuda.empty_cache()
     phase(21, "the GAN CLI and two processes", phase_gan_cli, dev)
     torch.cuda.empty_cache()
     phase(22, "converted EG3D pickles drive an 'sg' step at full width", phase_convert, dev)
     phase(22, "the native image loader on the host", phase_native_loader)
     sg3_launches = phase(23, "StyleGAN3-T FFHQ-1024 at full width", phase_sg3, dev)
-    for dtype, r in res.items():
-        log(f"{dtype}: median s/step after the second: sg {r['sg'][0]:.5f} (in turns: "
-            f"{r['sg'][1]:.5f}), mir {r['mir']:.5f}, stage-2 tune {r['tune']:.5f}; RotBbox "
-            f"regularizer steps {r['rotbbox'][0]:.5f}, reconstruction steps {r['rotbbox'][1]:.5f}")
-    log(f"editing (float32, batch 2, ViT-B/32 + ViT-B/16): median s/step after the second "
-        f"{edit_s:.5f}")
     from spi_tpu_torch.ops.plane_splat import contiguous_copies
 
     log(f"strided inputs the lookup copied in the whole run: {contiguous_copies}")
-    log("GAN training (full width, bfloat16 G, float32 D): seconds a step " + ", ".join(
-        f"{k} {v:.5f}" for k, v in gan_s.items()))
     for k in kernels:  # launches on the inversion ('sg') path of the kernel's dtype
         dtype = "bfloat16" if k["name"].endswith("_bf16") else "float32"
-        k["launches"] = res[dtype]["launches"][k["name"]]
+        k["launches"] = launches[dtype][k["name"]]
         k["gan_launches"] = gan_launches[k["name"]]  # in a plain GAN step (phase 20)
         k["sg3_launches"] = sg3_launches[k["name"]]  # in one SG3-T forward + backward (23)
     # The second-order form is on no inversion path; its path is GAN
@@ -4228,7 +3985,7 @@ def main(argv=None) -> int:
     grad2["launches"] = gan_launches["bias_act_grad2"]
     check([k["name"] for k in kernels] == list(_lib.KERNELS), "a kernel is missing from phase 2")
 
-    from spi_tpu_torch.tools.bench import card_label
+    from spi_tpu_torch.tools.timing import card_label
 
     print(card_label(dev))
     print(json.dumps({"kernels": kernels}))

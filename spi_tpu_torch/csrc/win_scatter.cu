@@ -70,15 +70,15 @@
 //
 // Measured (device-only, NVIDIA H100 80GB HBM3, 700 W; PERF.md): K1 64 x 64
 // 0.131 ms in f32 and 0.119 in bf16, where the first port took 1.599 and
-// 1.626 in the same run. What sets the pace
-// (spi_tpu_torch/tools/winscatter_pace.py, which builds this file with
-// -DWIN_SCATTER_MARKS): the same reductions alone, from values made in
-// registers, take 0.056 ms at K1 (f32, 4 lanes a cell) and 0.048 (bf16, 8
-// lanes), so the kernel is 2.3-2.5 times its
-// reductions at K1 and 1.6-1.7 times at K2. A K1 f32 block spends 57% of
-// its time in the sums, close to the reductions' rate, and 43% binning,
-// scanning, placing and waiting for the second pass's slab, when its SM,
-// which holds one block, issues no reduction.
+// 1.626 in the same run. What sets the pace (measured on the same card by
+// marks of %globaltimer in each block and by a kernel that issues the
+// reductions alone; PERF.md): the same reductions alone, from values made
+// in registers, take 0.056 ms at K1 (f32, 4 lanes a cell) and 0.048 (bf16,
+// 8 lanes), so the kernel is 2.3-2.5 times its reductions at K1 and
+// 1.6-1.7 times at K2. A K1 f32 block spends 57% of its time in the sums, close to the
+// reductions' rate, and 43% binning, scanning, placing and waiting for
+// the second pass's slab, when its SM, which holds one block, issues no
+// reduction.
 //
 // The order of the adds within a cell follows the atomicAdd ranks, so the
 // f32 sums, like the global reductions, may differ in their last bits from
@@ -122,43 +122,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
-
-// Timer marks, compiled only with -DWIN_SCATTER_MARKS (for
-// spi_tpu_torch/tools/winscatter_pace.py, which builds this file so apart
-// from the kernel library): thread 0 of each block keeps its start time and
-// the ns spent in each phase k = 1..6 since the previous mark, and stores
-// them as row blockIdx.x of g_marks (T, 8). MARK_SYNC(k) first waits for
-// the block, where the kernel itself has no barrier.
-#ifdef WIN_SCATTER_MARKS
-__device__ unsigned long long* g_marks;
-
-__device__ __forceinline__ unsigned long long now_ns() {
-  unsigned long long v;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(v));
-  return v;
-}
-
-#define MARK_START                                            \
-  unsigned long long mark_ns[7] = {}, mark_prev = now_ns(); \
-  mark_ns[0] = mark_prev;
-#define MARK(k)                                 \
-  {                                             \
-    const unsigned long long n_ = now_ns();     \
-    mark_ns[k] += n_ - mark_prev;               \
-    mark_prev = n_;                             \
-  }
-#define MARK_SYNC(k) \
-  __syncthreads();   \
-  MARK(k)
-#define MARK_STORE \
-  if (threadIdx.x == 0) \
-    for (int k_ = 0; k_ < 7; ++k_) g_marks[8 * blockIdx.x + k_] = mark_ns[k_];
-#else
-#define MARK_START
-#define MARK(k)
-#define MARK_SYNC(k)
-#define MARK_STORE
-#endif
 
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
@@ -238,7 +201,6 @@ win_scatter_kernel(const int* __restrict__ offsets, const float* __restrict__ fy
   unsigned short* run = reinterpret_cast<unsigned short*>(smem + lay.run);
   unsigned short* order = reinterpret_cast<unsigned short*>(smem + lay.order);
 
-  MARK_START
   const int t = blockIdx.x;
   const int lane_id = threadIdx.x & 31;
   const int passes = (c + Cfg::kStageC - 1) / Cfg::kStageC;
@@ -259,7 +221,6 @@ win_scatter_kernel(const int* __restrict__ offsets, const float* __restrict__ fy
     for (int i = threadIdx.x; i < (cells + 1) / 2; i += kThreads) count[i] = 0;
     if (threadIdx.x < kBuckets) bucket[threadIdx.x] = 0;
     __syncthreads();
-    MARK(1)
 
     // 1. Each corner of nonzero weight inside the window and the table
     // counts into its cell; the count before it is its rank.
@@ -293,7 +254,6 @@ win_scatter_kernel(const int* __restrict__ offsets, const float* __restrict__ fy
       }
     }
     __syncthreads();
-    MARK(2)
 
     // 2. One block scan over (nonzero, count) packed as nonzero << 16 |
     // count, over a run of cells per thread: each cell's start replaces its
@@ -323,7 +283,6 @@ win_scatter_kernel(const int* __restrict__ offsets, const float* __restrict__ fy
       }
     }
     __syncthreads();
-    MARK(3)
 
     // 3. Each corner's point goes to its cell's start plus its rank. Each
     // run takes a rank among the runs of its length bucket (one shared
@@ -370,7 +329,6 @@ win_scatter_kernel(const int* __restrict__ offsets, const float* __restrict__ fy
             (unsigned short)(threadIdx.x + k * kThreads);
       }
     }
-    MARK_SYNC(4)
 
     // 4. Per pass: kLanes neighbouring lanes take one nonzero cell, runs
     // of equal length side by side; each lane sums its 4 channels of the
@@ -383,7 +341,6 @@ win_scatter_kernel(const int* __restrict__ offsets, const float* __restrict__ fy
       }
       asm volatile("cp.async.wait_all;\n" ::);
       __syncthreads();  // the pass's cotangents and step 3's lists are in place
-      MARK(5)
       const int lanes = pass_channels(ps) / 4;
       float* out_c = out + ps * Cfg::kStageC;
       for (int task = threadIdx.x; task < runs * Cfg::kLanes; task += kThreads) {
@@ -419,10 +376,8 @@ win_scatter_kernel(const int* __restrict__ offsets, const float* __restrict__ fy
         const size_t at = ((size_t)(oy + y) * out_w + ox + x) * c + 4 * lane;
         atomicAdd(reinterpret_cast<float4*>(out_c + at), make_float4(acc[0], acc[1], acc[2], acc[3]));
       }
-      MARK_SYNC(6)
     }
   }
-  MARK_STORE
 }
 
 template <typename T>
@@ -446,44 +401,7 @@ int launch(const int* offsets, const float* fyx, const void* gft, float* out, in
   return (int)cudaGetLastError();
 }
 
-#ifdef WIN_SCATTER_MARKS
-// The kernel's reductions alone: for each of n nonzero bins (table cell
-// cells[b]), the float4 reductions the kernel issues for it, `lanes`
-// neighbouring lanes a cell, 4 channels each, 4 * lanes channels a pass.
-// The values are made in registers, so only the 4-byte cell is read.
-__global__ void reductions_kernel(const int* __restrict__ cells, int n, int c, int lanes,
-                                  float* __restrict__ out) {
-  const long long per_pass = (long long)n * lanes;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= per_pass * (c / (4 * lanes))) return;
-  const int ps = (int)(i / per_pass);
-  const int b = (int)((i - ps * per_pass) / lanes);
-  const int lane = (int)(i - ps * per_pass - (long long)b * lanes);
-  const float v = 1e-3f * (float)(lane + 1);
-  atomicAdd(reinterpret_cast<float4*>(out + (size_t)cells[b] * c + 4 * (ps * lanes + lane)),
-            make_float4(v, v, v, v));
-}
-#endif
-
 }  // namespace
-
-#ifdef WIN_SCATTER_MARKS
-// Where the kernel stores its marks: (T, 8) u64 on the device.
-extern "C" int spi_win_scatter_marks(unsigned long long* marks) {
-  return (int)cudaMemcpyToSymbol(g_marks, &marks, sizeof(marks));
-}
-
-// Launches the reductions alone into `out` (not zeroed); 4 * lanes divides c.
-extern "C" int spi_win_scatter_reductions(const int* cells, int n, int c, int lanes, float* out,
-                                          void* stream) {
-  if (lanes <= 0 || c % (4 * lanes)) return (int)cudaErrorInvalidValue;
-  const long long tasks = (long long)n * c / 4;
-  if (tasks == 0) return (int)cudaGetLastError();
-  reductions_kernel<<<(unsigned)((tasks + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
-      cells, n, c, lanes, out);
-  return (int)cudaGetLastError();
-}
-#endif
 
 // Zeroes `out` and splats into it. gft is f32 (bf16 = 0) or bf16
 // (bf16 = 1); C is a multiple of 4 and the window has at most 15,872

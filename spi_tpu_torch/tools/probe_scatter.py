@@ -29,7 +29,7 @@ from spi_tpu_torch.models.rendering import sample_rays
 from spi_tpu_torch.models.rendering.renderer import project_onto_planes, sample_stratified
 from spi_tpu_torch.ops.gather_scatter import row_scatter_add, row_scatter_add_plain
 from spi_tpu_torch.ops.grid_sample import texel_coords
-from spi_tpu_torch.tools.timing import device_name, time_ms
+from spi_tpu_torch.tools.timing import card_label, time_ms
 from spi_tpu_torch.utils import camera as cam
 from spi_tpu_torch.utils.device import resolve_device
 
@@ -131,7 +131,7 @@ def run(device=None, n_rows: int = N_ROWS, res: int = 128, n_samples: int = 48,
     bench("row_scatter_add kernel 786k x32", lambda: row_scatter_add(rows_rmw, upd_rmw, H * W))
     bench("index_add_ 786k x32", lambda: row_scatter_add_plain(rows_rmw, upd_rmw, H * W))
     check("786k x32", rows_rmw, upd_rmw, H * W)
-    return {"device": device_name(dev), "dup_stats": dup_stats(dev, n_samples, res),
+    return {"device": card_label(dev), "dup_stats": dup_stats(dev, n_samples, res),
             "times": times, "n_rows": n_rows, "check": checks}
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from spi_tpu_torch.ops.win_scatter import win_scatter, win_scatter_plain
-from spi_tpu_torch.tools.timing import device_name, time_ms
+from spi_tpu_torch.tools.timing import card_label, time_ms
 from spi_tpu_torch.utils.device import resolve_device
 
 H = W = 256
@@ -57,7 +57,7 @@ def run(device=None, n_tiles: int = N_TILES, tile_p: int = TILE_P, check_tiles: 
     to max |plain|}, 'times': {window: {kernel_ms, plain_ms, ns_per_row}}}.
     On a CPU device both sides are the plain version, timed on the host."""
     dev = resolve_device(device)
-    out = {"device": device_name(dev), "check": {}, "times": {}}
+    out = {"device": card_label(dev), "check": {}, "times": {}}
     for name, win_h, win_w, spread_h, spread_w in (
         ("K1 64x64 f32", 64, 64, 56, 56), ("K2 256x48 f32", H, 48, H - 2, 40),
         ("K1 64x64 bf16", 64, 64, 56, 56),

@@ -27,7 +27,7 @@ import torch
 
 from spi_tpu_torch.ops.gather_scatter import row_gather, row_gather_plain
 from spi_tpu_torch.ops.grid_sample import sample_flat
-from spi_tpu_torch.tools.timing import device_name, time_ms
+from spi_tpu_torch.tools.timing import card_label, time_ms
 from spi_tpu_torch.utils.device import resolve_device
 
 H = W = 256
@@ -83,7 +83,7 @@ def run(device=None, n_points: int = N_POINTS, iters: int = 20, warmup: int = 3)
         checks[label] = float((row_gather(tab32, idx) - row_gather_plain(tab32, idx)).abs().max())
         bench(f"row_gather kernel {label} f32", lambda: row_gather(tab32, idx))
         bench(f"torch.gather {label} f32 (int64 indices)", lambda: torch.gather(tab32, 0, idx64))
-    return {"device": device_name(dev), "times": times, "check": checks}
+    return {"device": card_label(dev), "times": times, "check": checks}
 
 
 def report(res):

@@ -3,7 +3,7 @@
     python -m spi_tpu_torch.tools.splat_tiles [--tiles 16,4,4 32,2,4 ...]
 
 Builds ffhq512_128_config at its published widths with random seeded
-weights (tools/step_time.py's model) and takes the points that
+weights (tools/workloads.py's model) and takes the points that
 `sample_from_planes` receives in one render: the canonical camera's coarse
 pass (`coarse_pass_points`) and fine pass, and the 'mir' two-camera coarse
 pass (`render_points`); `rotbbox_points` gives the RotBbox regularizers'
@@ -40,12 +40,12 @@ def coarse_pass_points(dev, res=128, samples=48):
 
 def render_points(dev, model):
     """The points and ray geometry that the renderer hands `sample_from_planes`
-    in one full-width render of step_time's model (canonical camera) and in
+    in one full-width render of workloads' model (canonical camera) and in
     one of the 'mir' projector's two cameras (one set of planes): {'fine':
     the single camera's importance pass, 'two-camera': the two cameras'
     coarse pass}, each ((1, P, 3) points, RayGeom)."""
     from spi_tpu_torch.models.rendering import renderer
-    from spi_tpu_torch.tools.step_time import MIR_YAW
+    from spi_tpu_torch.tools.workloads import MIR_YAW
     from spi_tpu_torch.utils import camera as cam
 
     g, _, _, camera = model
@@ -75,7 +75,7 @@ def rotbbox_points(dev, model, rot_bs=4):
     """The points the RotBbox regularizers hand `sample_from_planes` (TV
     at its default 1000 + 1000 points): {'four-camera' and 'four-camera
     fine': the rot term's coarse and importance passes over `rot_bs`
-    cameras around step_time's camera (the mirror term and the tuned
+    cameras around workloads' camera (the mirror term and the tuned
     depth render make the same two), 'tv': the TV loss's free points},
     each ((1, P, 3) points, RayGeom or None)."""
     from spi_tpu_torch.criteria.tv_loss import tv_loss
@@ -107,10 +107,10 @@ def rotbbox_points(dev, model, rot_bs=4):
 def run(dev, tiles=DEFAULT_TILES, c=32, h=256, w=256):
     """{(pass, tile): (reductions, device ms, error relative to max |plain|)}."""
     from spi_tpu_torch.ops import plane_splat as ps
-    from spi_tpu_torch.tools import step_time
+    from spi_tpu_torch.tools import workloads
     from spi_tpu_torch.tools.timing import device_ms
 
-    model = step_time.build_model(dev)
+    model = workloads.build_model(dev)
     passes = {"coarse": (coarse_pass_points(dev), ps.RayGeom(1, 128, 128, 48)),
               **render_points(dev, model)}
     del model

@@ -1,4 +1,5 @@
-"""Timing and roofline helpers shared by the probe tools and chip_smoke.py.
+"""Timing and roofline helpers shared by the probe tools and chip_smoke.py,
+which time and check kernels; steps are timed by benchmark/run.py alone.
 
 `time_ms` times back-to-back calls with CUDA events: where a call's host
 work (checks, allocation, launch) takes longer than its device work, it
@@ -8,6 +9,7 @@ host's part of a call apart."""
 
 from __future__ import annotations
 
+import subprocess
 import time
 
 import torch
@@ -117,5 +119,11 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_name(device: torch.device) -> str:
-    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+def card_label(device: torch.device) -> str:
+    """The card's name and power limit as nvidia-smi's csv gives them, or
+    'cpu'."""
+    if device.type != "cuda":
+        return "cpu"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                          f"--id={device.index or 0}"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]

@@ -1,42 +1,28 @@
-"""Wall-clock seconds per inversion step at ffhq512_128_config width on the card.
+"""The port's inversion workloads at ffhq512_128_config width, for the card
+checks of `chip_smoke.py` and the tools.
 
-    python -m spi_tpu_torch.tools.step_time [--mode sg|sgw+|mir|tune|rotbbox] [--steps N]
-        [--dtype float32|bfloat16] [--profile]
-    PYTHONPATH=<checkout> python spi_tpu_torch/tools/step_time.py --mode sg
-
-Builds the generator at its published widths with random seeded weights
-and the compute dtype `--dtype` (float32 by default; the CLI's default
-is bfloat16), LPIPS-VGG16 (float32, as the CLI's) and a random 512^2
-target, runs N steps of one stage-1 projector mode ('mir' from a camera
-yawed by MIR_YAW) or of stage 2 from the pivot of PIVOT_STEPS 'sg' steps
-(TF32 off): 'tune' is recon-only, 'rotbbox' SPI's RotBbox request (rot
-0.1, mirror-rot 0.05, depth 1) from the yawed camera with a synthetic
-face mask and landmarks. It prints one line: the median s/step after
-the second step (for 'rotbbox' also that of its regularizer steps, 4, 8,
-...), every step's time, and the peak device memory. With --profile, a
-second line: one more step (a regularizer step for 'rotbbox') under
-torch.profiler, its device ms in all and in the triplane lookup's kernels
-(the lookup kernel, PyTorch's `vectorized_gather_kernel`, the splat).
-`chip_smoke.py` times the same workload through `build_model`,
-`projection`, `tuning`, `rotbbox` and `time_steps` (several images a
-step through `projection_batch` and `rotbbox_batch`), and
-`tools/bench.py` builds its model and stage 1 from it.
-Run as a file (the second form), it imports `spi_tpu_torch` from
-PYTHONPATH, so it times another checkout's package on the same card
-('sg' only where that tree has no other mode).
+`build_model` builds the generator at its published widths (the tiny
+test config with `tiny`) with random seeded weights and a compute dtype
+(float32 by default; the CLI's default is bfloat16), LPIPS-VGG16 and a
+random target at the generator's resolution. Each workload returns
+`fn(on_step)`, which runs N steps and calls `on_step(step, value)` after
+each: one stage-1 projector mode (`projection`; 'mir' from a camera
+yawed by MIR_YAW), stage 2 from a pivot (`tuning`, recon-only;
+`rotbbox`, SPI's RotBbox request: rot 0.1, mirror-rot 0.05, depth 1,
+from the yawed camera with `synthetic_face`'s mask and landmarks), and
+the same for several images a step (`projection_batch`,
+`rotbbox_batch`). `write_photo` writes a synthetic raw photo for the
+preprocess. Steps of the port are timed by `benchmark/run.py` alone.
 """
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import math
-import statistics
-import time
 
 import torch
 
-# The timed workload's seeds: weights, target, and each run's random draws.
+# The workloads' seeds: weights, target, and each run's random draws.
 WEIGHT_SEED = 0
 TARGET_SEED = 7
 RUN_SEEDS = {"sg": 8, "sgw+": 8, "mir": 12, "tune": 13, "rotbbox": 15}
@@ -44,18 +30,18 @@ MIR_YAW = 0.4
 PIVOT_STEPS = 8
 
 
-def build_model(dev, dtype="float32", lpips_dtype="float32", tiny=False):
+def build_model(dev, dtype="float32", tiny=False):
     """ffhq512_128_config at its published widths (tiny_test_config with
     `tiny`, for tests) and compute dtype `dtype`, random seeded weights;
-    LPIPS-VGG16 in `lpips_dtype`; a random target at the generator's
-    resolution; the canonical camera."""
+    LPIPS-VGG16 in float32; a random target at the generator's resolution;
+    the canonical camera."""
     from spi_tpu_torch.criteria.lpips import LPIPS
     from spi_tpu_torch.models import TriPlaneGenerator, ffhq512_128_config, tiny_test_config
     from spi_tpu_torch.utils import camera as cam
 
     config = tiny_test_config if tiny else ffhq512_128_config
     g = TriPlaneGenerator(config(compute_dtype=dtype), device=dev, seed=WEIGHT_SEED)
-    lpips = LPIPS(device=dev, compute_dtype=lpips_dtype)
+    lpips = LPIPS(device=dev)
     res = g.cfg.img_resolution
     target = torch.tanh(torch.randn(1, 3, res, res, device=dev,
                                     generator=torch.Generator(device=dev).manual_seed(TARGET_SEED)))
@@ -196,112 +182,3 @@ def rotbbox_batch(model, pivot, steps, dev, b):
         g, lpips, inputs, settings, noise=noise_b,
         rngs=[torch.Generator(device=dev).manual_seed(RUN_SEEDS["rotbbox"] + i)
               for i in range(b)], device=dev, on_step=on_step, box_cx=box_cx)
-
-
-def time_steps(fn, after_stamp=None):
-    """Run `fn(on_step)` with the peak memory reset just before it; each
-    step is stamped after a device sync, then `after_stamp()` is called.
-    Returns (fn's result, first step s, [s of each later step], peak bytes)."""
-    stamps = []
-
-    def on_step(step, value):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        if after_stamp is not None:
-            after_stamp()
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t_start = time.perf_counter()
-    result = fn(on_step)
-    torch.cuda.synchronize()
-    step_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
-    return result, stamps[0] - t_start, step_s, torch.cuda.max_memory_allocated()
-
-
-def steady_s(step_s):
-    """The median s/step after the second step."""
-    return statistics.median_high(step_s[1:])
-
-
-def device_kernels(prof):
-    """{kernel name: (device ms, launches)} of a torch.profiler run: the
-    events on the card with device time, less user annotations and the
-    profiler's own step markers. Raises where there is none."""
-    per_kernel = {}
-    for evt in prof.key_averages():
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = getattr(evt, "self_cuda_time_total", 0.0)
-        if (t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(evt, "is_user_annotation", False)
-                and "#" not in evt.key and not evt.key.startswith("ProfilerStep")):
-            per_kernel[evt.key] = (t / 1e3, evt.count)
-    if not per_kernel:
-        raise RuntimeError("the profiler saw no device time")
-    return per_kernel
-
-
-def profile_step(fn, wait):
-    """`device_kernels` of step number `wait` + 1 of the workload
-    `fn(on_step)` under torch.profiler (after `wait` steps and a warm-up
-    step)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=wait, warmup=1, active=1)) as prof:
-        fn(lambda step, value: prof.step())
-    return device_kernels(prof)
-
-
-# Kernel name fragments of the triplane lookup's forward and backward.
-LOOKUP_KERNELS = (("plane_sample", "lookup kernel"), ("vectorized_gather_kernel", "gather"),
-                  ("plane_splat", "splat"))
-
-
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", default="sg", choices=("sg", "sgw+", "mir", "tune", "rotbbox"))
-    ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
-                    help="the generator's compute dtype")
-    ap.add_argument("--profile", action="store_true",
-                    help="profile one more step (a regularizer step for rotbbox)")
-    args = ap.parse_args(argv)
-
-    import spi_tpu_torch
-    from spi_tpu_torch.utils.device import resolve_device
-
-    dev = resolve_device(torch.device("cuda", 0))
-    model = build_model(dev, args.dtype)
-    if args.mode in ("tune", "rotbbox"):
-        w, noise, _ = time_steps(projection(model, "sg", PIVOT_STEPS, dev))[0]
-        stage2 = tuning if args.mode == "tune" else rotbbox
-        fn = stage2(model, (w, noise), args.steps, dev)
-        profiled, wait = stage2(model, (w, noise), 5, dev), 3  # step 4 has the regularizers
-    else:
-        fn = projection(model, args.mode, args.steps, dev)
-        profiled, wait = projection(model, args.mode, 3, dev, seed=9), 1
-    _, _, step_s, peak = time_steps(fn)
-    extra = ""
-    if args.mode == "rotbbox":
-        median = statistics.median_high([step_s[k - 1] for k in range(4, args.steps, 4)])
-        extra = f", regularizer steps {median:.5f}"
-    print(f"{args.mode} {args.dtype} ({spi_tpu_torch.__file__}, "
-          f"{torch.cuda.get_device_name(dev)}): median "
-          f"{steady_s(step_s):.5f} s/step after the second{extra}; steps "
-          f"{[round(t, 5) for t in step_s]}; peak {peak / 2**30:.3f} GiB", flush=True)
-    if args.profile:
-        per_kernel = profile_step(profiled, wait)
-        total = sum(t for t, _ in per_kernel.values())
-        parts = []
-        for frag, what in LOOKUP_KERNELS:
-            hits = [v for k, v in per_kernel.items() if frag in k]
-            parts.append(f"{what} {sum(t for t, _ in hits):.3f} ms in {sum(n for _, n in hits)}")
-        print(f"{args.mode} {args.dtype} profiled step: device {total:.3f} ms in "
-              f"{sum(n for _, n in per_kernel.values())} launches; " + ", ".join(parts),
-              flush=True)
-
-
-if __name__ == "__main__":
-    main()

@@ -112,14 +112,13 @@ def test_pipeline_and_cli_raise_without_gpu(no_cuda, tmp_path):
 
 
 def test_outputs_and_preprocess_raise_without_gpu(no_cuda, tmp_path):
-    """The orbit video / shape CLI, the preprocess CLI and networks and the
-    benchmark entry point default to the card and raise without one."""
+    """The orbit video / shape CLI and the preprocess CLI and networks
+    default to the card and raise without one."""
     from spi_tpu_torch.cli import run_preprocess, run_video
     from spi_tpu_torch.models.perception.bisenet import BiSeNet
     from spi_tpu_torch.models.perception.face_recon import FaceReconNet
     from spi_tpu_torch.models.perception.fan import FAN
     from spi_tpu_torch.preprocess.pipeline import PreprocessModels
-    from spi_tpu_torch.tools import bench
 
     for module in (FAN, FaceReconNet, BiSeNet, PreprocessModels.random_init):
         with pytest.raises(RuntimeError, match="no GPU"):
@@ -130,8 +129,7 @@ def test_outputs_and_preprocess_raise_without_gpu(no_cuda, tmp_path):
              lambda: run_preprocess.main(["--input_dir", str(tmp_path), "--output_dir",
                                           str(tmp_path), "--random_init"]),
              lambda: run_preprocess.main(["--input_dir", str(tmp_path), "--output_dir",
-                                          str(tmp_path), "--ckpt_dir", str(tmp_path)]),
-             lambda: bench.main(["--tiny"])]
+                                          str(tmp_path), "--ckpt_dir", str(tmp_path)])]
     for call in calls:
         with pytest.raises(RuntimeError, match="no GPU"):
             call()
@@ -212,14 +210,6 @@ def test_tools_raise_without_gpu(no_cuda, tool):
         mod.run()
     with pytest.raises(RuntimeError, match="no GPU"):
         mod.main()
-
-
-@pytest.mark.parametrize("mode", ["sg", "tune", "rotbbox"])
-def test_step_time_raises_without_gpu(no_cuda, mode):
-    from spi_tpu_torch.tools import step_time
-
-    with pytest.raises(RuntimeError, match="no GPU"):
-        step_time.main(["--mode", mode, "--steps", "1"])
 
 
 def test_chip_smoke_fails_without_gpu(no_cuda, capsys):

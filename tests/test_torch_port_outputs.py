@@ -1,7 +1,7 @@
 """spi_tpu_torch's inference outputs against spi_tpu, on the CPU: the
 orbit video (utils/video.py), the shape export (utils/shape.py) and
-cli/run_video.py. The inversion CLI's --save_video and tools/bench.py are
-in tests/test_torch_port_outputs_cli.py.
+cli/run_video.py. The inversion CLI's --save_video is in
+tests/test_torch_port_outputs_cli.py.
 
 Both sides get one set of tiny_test_config weights (the port's seeded
 init, read into spi_tpu's tree with `unflatten_to_nested`: spi_tpu's

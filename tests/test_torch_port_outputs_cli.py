@@ -1,20 +1,12 @@
 """The port's entry points around the inversion, end to end on the CPU at
 the tiny size: the inversion CLI's --save_video (its video file, and
-run_video on the checkpoint it wrote) and the benchmark line of
-tools/bench.py (one JSON line last, with bench.py's metric string and no
-vs_baseline). Their modules are held to spi_tpu in
-tests/test_torch_port_outputs.py.
+run_video on the checkpoint it wrote). Their modules are held to spi_tpu
+in tests/test_torch_port_outputs.py.
 """
 
-import json
-import math
 import os
-import re
-
-import pytest
 
 from spi_tpu_torch.cli import run_inversion, run_video
-from spi_tpu_torch.tools import bench
 from torch_threads import few_torch_threads  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -43,27 +35,3 @@ def test_cli_save_video(tmp_path):
                           "--output", str(tmp_path / "v.mp4"), "--frames", "2", "--tiny",
                           "--device", "cpu"])
     assert out["frames"].shape == (2, 128, 128, 3)
-
-
-def test_bench_line_at_tiny(capsys, monkeypatch):
-    """tools/bench.py --device cpu --tiny prints one JSON line last with
-    bench.py's metric string, no vs_baseline, and finite positive times.
-    Each stage times 1 step here (N_STEPS, 8 on the card): 2 runs of 2."""
-    monkeypatch.setattr(bench, "N_STEPS", 1)
-    with open(os.path.join(ROOT, "bench.py")) as f:
-        metric = re.search(r'"metric": "([^"]+)"', f.read()).group(1)
-    result = bench.main(["--device", "cpu", "--tiny", "--s1_steps", "1", "--s2_steps", "1"])
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert all(line.startswith("# ") for line in lines[:-1])
-    assert json.loads(lines[-1]) == result
-    assert result["metric"] == bench.METRIC == metric
-    assert set(result) == {"metric", "value", "unit", "detail"} and result["unit"] == "s"
-    d = result["detail"]
-    assert set(d) == {"stage1_s_per_step", "stage2_s_per_step", "pipeline_scaled_s", "dtype",
-                      "device"}
-    assert d["dtype"] == "bfloat16" and d["device"] == "cpu"
-    for v in (result["value"], d["stage1_s_per_step"], d["stage2_s_per_step"],
-              d["pipeline_scaled_s"]):
-        assert math.isfinite(v) and v > 0
-    assert result["value"] == pytest.approx(500 * d["stage1_s_per_step"]
-                                            + 1000 * d["stage2_s_per_step"])

@@ -55,7 +55,7 @@ from spi_tpu_torch.models.perception import fan as PF
 from spi_tpu_torch.preprocess import camera_math as pcm
 from spi_tpu_torch.preprocess import extras as pextras
 from spi_tpu_torch.preprocess import pipeline as ppipe
-from spi_tpu_torch.tools.step_time import write_photo
+from spi_tpu_torch.tools.workloads import write_photo
 from spi_tpu_torch.utils.checkpoint import load_flat_params
 from torch_threads import few_torch_threads  # noqa: F401
 

@@ -5,7 +5,7 @@ spi_tpu's is in tests/test_torch_port_preprocess.py, beside the networks
 whose JAX programs it shares.
 
 The photo is a synthetic 640^2 portrait-like image from a seed
-(`write_photo` of spi_tpu_torch/tools/step_time.py, which chip_smoke.py
+(`write_photo` of spi_tpu_torch/tools/workloads.py, which chip_smoke.py
 preprocesses too).
 """
 
@@ -18,7 +18,7 @@ from spi_tpu_torch.cli import run_preprocess
 from spi_tpu_torch.models.perception.face_recon import FaceReconNet
 from spi_tpu_torch.models.perception.fan import FAN
 from spi_tpu_torch.preprocess import pipeline as ppipe
-from spi_tpu_torch.tools.step_time import write_photo
+from spi_tpu_torch.tools.workloads import write_photo
 from test_torch_port_preprocess import numpy_weights
 from torch_threads import few_torch_threads  # noqa: F401
 

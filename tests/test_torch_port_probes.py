@@ -35,7 +35,6 @@ from spi_tpu_torch.tools import (
     profile_gather,
     splat_tiles,
     timing,
-    winscatter_pace,
 )
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tools"))
@@ -259,11 +258,6 @@ def test_tool_runs_on_cpu(tool):
     assert res["device"] == "cpu"
     assert all(np.isfinite(v) and v >= 0 for v in res["times"].values()
                if not isinstance(v, dict))
-
-
-def test_winscatter_pace_needs_a_card():
-    with pytest.raises(ValueError, match="CUDA device"):
-        winscatter_pace.run("cpu")
 
 
 @pytest.mark.parametrize("timer", ["device_ms", "enqueue_us"])
