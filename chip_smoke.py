@@ -124,7 +124,13 @@ Phases (any failure exits non-zero):
      float32, batch 1, seeded: a forward and a backward (finite, and the
      launches of each: one fused filtered_lrelu each way a layer, no
      upfirdn2d), the largest bias_act call's inputs kernel against plain
-     version bitwise, and one magnitude EMA renewed.
+     version bitwise, and one magnitude EMA renewed;
+ 24. the editing step replayed as one CUDA graph (`step`) against the same
+     step issued eagerly (`eager_step`), at the tiny size and at
+     edit_clip_b2's and edit_sg3t_b2's widths: 5 steps from one seed, the
+     losses and trained leaves within twice three eager runs' spread, the same
+     generator state and launches a step; a capture and replays under
+     torch.profiler list an eager step's kernels a replay.
 There is no phase 5 or 13; the other phases keep the numbers that the
 port's comments cite. Steps of the port are timed by benchmark/run.py
 alone: this script checks the port on the card and times its kernels.
@@ -3889,6 +3895,168 @@ def phase_sg3(dev):
     return launches
 
 
+def graph_check_trainers(dev, size):
+    """The editing trainers the graph check compares: 'tiny'
+    (tiny_test_config twins with noise strengths 0.1, tiny_test_clip),
+    'eg3d' (ffhq512_128_config twins and ViT-B/32 + ViT-B/16 at their
+    published widths: edit_clip_b2's) or 'sg3' (StyleGAN3-T FFHQ-1024 twins
+    and the same CLIP models: edit_sg3t_b2's); batch 2, the direction term
+    only, seeded weights. Returns make(seed) -> a trainer with the
+    text-side state, all on one frozen generator."""
+    import zlib
+
+    import torch
+
+    from spi_tpu_torch.cli.run_editing import CRCTokenizer
+    from spi_tpu_torch.editing import DirectionalCLIPLoss, EditingSettings, ZSSGANTrainer
+    from spi_tpu_torch.editing.zssgan2d import ZSSGANSG3Trainer
+    from spi_tpu_torch.models import TriPlaneGenerator, ffhq512_128_config, tiny_test_config
+    from spi_tpu_torch.models.perception import clip as clip_models
+    from spi_tpu_torch.models.stylegan3 import SG3Generator
+
+    if size == "sg3":
+        frozen = SG3Generator(**SG3_T, device=dev, seed=0)
+    else:
+        frozen = TriPlaneGenerator(tiny_test_config() if size == "tiny" else ffhq512_128_config(),
+                                   device=dev, seed=0)
+    if size == "tiny":
+        with torch.no_grad():
+            for name, t in frozen.named_parameters():
+                if name.endswith("noise_strength"):
+                    t.fill_(0.1)
+        configs = {"tiny": clip_models.tiny_test_clip()}
+    else:
+        configs = {name: getattr(clip_models, cfg)() for name, cfg in EDIT_CLIPS}
+    losses = {name: DirectionalCLIPLoss(clip_models.CLIP(
+        cfg, device=dev, seed=zlib.crc32(name.encode()) % 2**31)) for name, cfg in configs.items()}
+    cls = ZSSGANSG3Trainer if size == "sg3" else ZSSGANTrainer
+    tokenizer = CRCTokenizer(next(iter(configs.values())).vocab_size)
+    states = {}
+
+    def make(seed):
+        tr = cls(frozen, losses, {name: 1.0 for name in losses}, EditingSettings(), device=dev,
+                 seed=seed)
+        if not states:
+            states.update(tr.build_states(tokenizer))
+        tr.states = states
+        return tr
+
+    return make
+
+
+def trace_kernels(prof):
+    """The kernel events of a profiler's Chrome trace, as benchmark/harness/
+    trace.py reads them: their names."""
+    import os
+    import tempfile
+
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.remove(path)
+    return [e["name"] for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+
+def phase_graph_step(dev, steps=5, seed=7):
+    """The editing step replayed as one CUDA graph against the same step
+    issued operator by operator, at the tiny size and at edit_clip_b2's and
+    edit_sg3t_b2's widths. From one seed, so on the same draws: `steps`
+    graphed steps (`step`: step 0 eager, step 1 captured and replayed, the
+    rest replayed) and three runs of `steps` eager steps (`eager_step`).
+    The graphed run lies within twice the eager runs' spread of each of
+    them: the largest relative gap over the losses, and over the trained
+    leaves the norm of the changes' gap over the norm of the change (as
+    the benchmark's `change`: the splat's atomics and Adam's first updates,
+    about lr * sign(g), turn rounding into flips of whole entries), each
+    the largest over the pairs of runs (bitwise where the eager runs agree
+    bitwise); the graphed run's generator ends where the eager runs' do; a
+    replay counts an eager step's launches. A trainer captured and replayed
+    under torch.profiler lists in the Chrome trace, for each replay, the
+    kernels of an eager step within 3% (the port's kernels among them).
+    Returns {size: the launches of a replay}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spi_tpu_torch.ops import _lib
+
+    out = {}
+    for size in ("tiny", "eg3d", "sg3"):
+        make = graph_check_trainers(dev, size)
+
+        def run(graphed):
+            tr = make(seed)
+            check(tr.graphed, f"graph check {size}: the trainer on the card is not graphed")
+            losses, launches = [], []
+            for _ in range(steps):
+                before = dict(_lib.launch_counts)
+                losses.append(float(tr.step() if graphed else tr.eager_step()))
+                launches.append({k: n - before[k] for k, n in _lib.launch_counts.items()
+                                 if n != before[k]})
+            start = dict(tr.frozen.named_parameters())
+            changes = {k: p.detach() - start[k] for k, p in tr.trainable.named_parameters()
+                       if k in tr.mask}
+            return tr, losses, launches, changes, tr.rng.get_state()
+
+        _, g_losses, g_launches, g_leaves, g_rng = run(True)
+        eager = [run(False) for _ in range(3)]
+        _, e_losses, e_launches, e_leaves, e_rng = eager[0]
+        twin = eager[-1][0]
+
+        def loss_gap(a, b):
+            return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+        def change_gap(a, b):
+            return max(float((a[k] - b[k]).norm() / b[k].norm().clamp_min(1e-30)) for k in b)
+
+        pairs = [(eager[i], eager[j]) for i in range(3) for j in range(i + 1, 3)]
+        loss_spread = max(loss_gap(a[1], b[1]) for a, b in pairs)
+        spread = max(change_gap(a[3], b[3]) for a, b in pairs)
+        loss_err = max(loss_gap(g_losses, e[1]) for e in eager)
+        err = max(change_gap(g_leaves, e[3]) for e in eager)
+        log(f"graph check {size}: losses graphed {g_losses}, eager {e_losses}; loss gap "
+            f"{loss_err:.3e} against the eager runs' {loss_spread:.3e}; the {len(g_leaves)} "
+            f"trained leaves' changes {err:.3e} against the eager runs' {spread:.3e}")
+        check(loss_err <= 2 * loss_spread, f"graph check {size}: the graphed losses stray "
+              f"{loss_err:.3e}, the eager runs {loss_spread:.3e}")
+        check(err <= 2 * spread, f"graph check {size}: the graphed changes stray {err:.3e}, "
+              f"the eager runs {spread:.3e}")
+        check(all(torch.equal(g_rng, e[4]) for e in eager),
+              f"graph check {size}: the generators end apart")
+        check(all(n == e_launches[-1] for n in g_launches[2:] + e_launches[1:]),
+              f"graph check {size}: a replay launches {g_launches[2:]}, an eager step "
+              f"{e_launches[1:]}")
+        out[size] = g_launches[-1]
+
+        # Kernels of an eager step and of a capture and two replays under
+        # the profiler, as the benchmark's trace reads them.
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            float(twin.eager_step())
+        eager_kernels = trace_kernels(prof)
+        del twin, eager
+        tr = make(seed)
+        float(tr.step())
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                float(tr.step())
+        replayed = trace_kernels(prof)
+        ours = sorted({k for k in replayed
+                       if any(w in k for w in ("plane_s", "bias_act", "filtered_lrelu"))})
+        n = len(eager_kernels)
+        log(f"graph check {size}: an eager step traces {n} kernels, a capture and two "
+            f"replays {len(replayed)}; the port's: {ours}; launches a replay {out[size]}")
+        check(abs(len(replayed) - 2 * n) <= 0.03 * 2 * n and ours,
+              f"graph check {size}: the trace lists {len(replayed)} kernels of two replays "
+              f"against {n} of an eager step")
+        del tr, make
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3971,6 +4139,8 @@ def main(argv=None) -> int:
     phase(22, "converted EG3D pickles drive an 'sg' step at full width", phase_convert, dev)
     phase(22, "the native image loader on the host", phase_native_loader)
     sg3_launches = phase(23, "StyleGAN3-T FFHQ-1024 at full width", phase_sg3, dev)
+    torch.cuda.empty_cache()
+    phase(24, "the editing step as one CUDA graph against eager steps", phase_graph_step, dev)
     from spi_tpu_torch.ops.plane_splat import contiguous_copies
 
     log(f"strided inputs the lookup copied in the whole run: {contiguous_copies}")

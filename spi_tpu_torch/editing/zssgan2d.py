@@ -46,15 +46,15 @@ class ZSSGAN2DTrainer(TwinGeneratorTrainer):
         self.mixing_prob = mixing_prob
         super().__init__(frozen, clip_losses, clip_weights, settings, trainable, device, seed)
 
-    def draw_w(self, n, generator):
+    def draw_w(self, n, generator, out=None):
         """{'z1', 'z2': (n, z_dim), 'mix': (n,) U[0, 1), 'cross': (n,) in
         [1, num_ws)}, in spi_tpu's order of keys."""
-        dev, z_dim = self.device, self.frozen.mapping.z_dim
-        return {"z1": torch.randn((n, z_dim), generator=generator, device=dev),
-                "z2": torch.randn((n, z_dim), generator=generator, device=dev),
-                "mix": torch.rand((n,), generator=generator, device=dev),
+        dev, z_dim, out = self.device, self.frozen.mapping.z_dim, out or {}
+        return {"z1": torch.randn((n, z_dim), generator=generator, device=dev, out=out.get("z1")),
+                "z2": torch.randn((n, z_dim), generator=generator, device=dev, out=out.get("z2")),
+                "mix": torch.rand((n,), generator=generator, device=dev, out=out.get("mix")),
                 "cross": torch.randint(1, self.frozen.num_ws, (n,), generator=generator,
-                                       device=dev)}
+                                       device=dev, out=out.get("cross"))}
 
     @torch.no_grad()
     def sample_w(self, w_draws, truncation=None):
@@ -72,8 +72,8 @@ class ZSSGAN2DTrainer(TwinGeneratorTrainer):
         use_mix = (w_draws["mix"] < self.mixing_prob)[:, None, None]
         return torch.where(use_mix, mixed, w1)
 
-    def draw_render(self, n, generator):
-        return {"noise": self.frozen.synthesis.draw_noise(n, generator)}
+    def draw_render(self, n, generator, out=None):
+        return {"noise": self.frozen.synthesis.draw_noise(n, generator, (out or {}).get("noise"))}
 
     def render(self, g, ws, render_draws):
         return g.synthesis(ws, noise_mode="random", noise=render_draws["noise"])
@@ -106,7 +106,7 @@ class ZSSGANSG3Trainer(ZSSGAN2DTrainer):
         with span("spi.mapping"):
             return super().sample_w(w_draws, truncation)
 
-    def draw_render(self, n, generator):
+    def draw_render(self, n, generator, out=None):
         return {}
 
     def render(self, g, ws, render_draws):

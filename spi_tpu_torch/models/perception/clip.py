@@ -22,6 +22,7 @@ device it holds shapes only.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -39,12 +40,19 @@ CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
+@functools.cache
+def clip_stats(device: torch.device, dtype: torch.dtype):
+    """CLIP_MEAN and CLIP_STD as (1, 3, 1, 1) tensors, made once per device
+    and dtype (one blocking transfer each, the first time), so that a step
+    reads them without a transfer."""
+    with span("spi.sync"):
+        return tuple(torch.tensor(v, dtype=dtype, device=device)[None, :, None, None]
+                     for v in (CLIP_MEAN, CLIP_STD))
+
+
 def clip_normalize(x01):
     """(N, 3, H, W) in [0, 1] -> CLIP-normalized."""
-    with span("spi.sync"):
-        mean = torch.tensor(CLIP_MEAN, dtype=x01.dtype, device=x01.device)[None, :, None, None]
-    with span("spi.sync"):
-        std = torch.tensor(CLIP_STD, dtype=x01.dtype, device=x01.device)[None, :, None, None]
+    mean, std = clip_stats(x01.device, x01.dtype)
     return (x01 - mean) / std
 
 

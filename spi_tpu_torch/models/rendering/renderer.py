@@ -71,20 +71,25 @@ def sample_from_planes(planes_nhwc, coordinates, box_warp: float, geom: RayGeom 
     return sample_planes(planes_nhwc, coordinates, box_warp, geom)
 
 
-def _draw_uniform(shape, device, generator):
-    return torch.rand(shape, generator=generator, device=device)
+def _draw_uniform(shape, device, generator, out=None):
+    return torch.rand(shape, generator=generator, device=device, out=out)
 
 
-def draw_randoms(options: RenderingOptions, n: int, m: int, device=None, generator=None):
+def draw_randoms(options: RenderingOptions, n: int, m: int, device=None, generator=None,
+                 out=None):
     """One render's random numbers for `n` cameras of `m` rays each, drawn
     from `generator`: {'stratified': (n, m, S, 1) uniforms, 'exponential':
-    (n * m, I + 1) Exp(1) draws}. Two renders handed the same dict jitter
-    alike."""
-    draws = {"stratified": _draw_uniform((n, m, options.depth_resolution, 1), device, generator)}
+    (n * m, I + 1) Exp(1) draws}, into `out`'s tensors where it is given (a
+    dict as this returns). Two renders handed the same dict jitter alike."""
+    out = out or {}
+    draws = {"stratified": _draw_uniform((n, m, options.depth_resolution, 1), device, generator,
+                                         out.get("stratified"))}
     if options.depth_resolution_importance > 0:
-        draws["exponential"] = torch.empty(
-            n * m, options.depth_resolution_importance + 1, device=device).exponential_(
-            generator=generator)
+        exponential = out.get("exponential")
+        if exponential is None:
+            exponential = torch.empty(n * m, options.depth_resolution_importance + 1,
+                                      device=device)
+        draws["exponential"] = exponential.exponential_(generator=generator)
     return draws
 
 

@@ -245,12 +245,15 @@ class SynthesisNetwork(nn.Module):
             self.add_module(f"b{res}", block)
             self.num_ws += block.num_conv + (block.num_torgb if res == img_resolution else 0)
 
-    def draw_noise(self, n, generator=None):
+    def draw_noise(self, n, generator=None, out=None):
         """Fresh standard-normal noise maps for noise_mode='random', one per
         noise_const buffer, in the order of synthesis: {its name: (n, 1, R,
         R)} from `generator`, on the buffers' device (spi_tpu draws each
-        from its own split key)."""
-        return {k: torch.randn((n, 1, *v.shape), generator=generator, device=v.device)
+        from its own split key); into `out`'s tensors where it is given (a
+        dict as this returns)."""
+        out = out or {}
+        return {k: torch.randn((n, 1, *v.shape), generator=generator, device=v.device,
+                               out=out.get(k))
                 for k, v in self.named_buffers() if k.endswith("noise_const")}
 
     def forward(self, ws, noise_mode="const", noise=None):

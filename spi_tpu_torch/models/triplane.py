@@ -177,11 +177,13 @@ class TriPlaneGenerator(nn.Module):
         rgb, sigma = cast_call(self.decoder, dt, feats.to(dt), dirs)
         return rgb.float(), sigma.float()
 
-    def draw_noise(self, n, generator=None):
+    def draw_noise(self, n, generator=None, out=None):
         """Noise maps for noise_mode='random': {noise_const name under
-        `backbone.synthesis.`: (n, 1, R, R)} from `generator`."""
+        `backbone.synthesis.`: (n, 1, R, R)} from `generator`; into `out`'s
+        tensors where it is given (a dict as this returns)."""
+        inner = {k.removeprefix(_SYNTHESIS): v for k, v in (out or {}).items()}
         return {_SYNTHESIS + k: v
-                for k, v in self.backbone.synthesis.draw_noise(n, generator).items()}
+                for k, v in self.backbone.synthesis.draw_noise(n, generator, inner).items()}
 
     def planes_nhwc(self, ws, noise_mode="const", noise=None, generator=None):
         """ws (N, num_ws, w_dim) -> planes (N, 3, H*W, plane_channels), in
